@@ -1,0 +1,76 @@
+"""tpu_deflate_torch's batched encoder against the JAX package's
+encode_blocks_batch: identical bytes, lengths and token counts."""
+
+from __future__ import annotations
+
+import dataclasses
+import zlib
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from tests.corpora import corpus  # noqa: E402
+from tpu_deflate.config import DeflateConfig as JConfig  # noqa: E402
+from tpu_deflate.ops.encode import encode_blocks_batch as j_encode  # noqa: E402
+from tpu_deflate_torch.config import DeflateConfig as TConfig  # noqa: E402
+from tpu_deflate_torch.ops.encode import encode_blocks_batch  # noqa: E402
+
+
+def _lanes(chunk):
+    """Modes 0-7 as lanes, plus a mixed lane (compressible, then random
+    bytes, which only the stored form holds) and a lane cut short; every other lane
+    final."""
+    rng = np.random.default_rng(17)
+    data = np.zeros((10, chunk), np.uint8)
+    n = np.zeros(10, np.int32)
+    for mode in range(8):
+        raw = corpus(mode, chunk - 11 * mode)
+        data[mode, : len(raw)] = np.frombuffer(raw, np.uint8)
+        n[mode] = len(raw)
+    data[8, :64] = np.frombuffer(corpus(0, 64), np.uint8)
+    data[8, 64:] = rng.integers(0, 256, chunk - 64)
+    n[8] = chunk
+    data[9, :100] = np.frombuffer(corpus(1, 100), np.uint8)
+    n[9] = 100
+    finals = np.arange(10) % 2 == 1
+    return data, n, finals
+
+
+@pytest.mark.parametrize("chunk,window,max_match", [
+    (4096, 256, 10), (8192, 256, 10), (4096, 32, 5),
+    (4096, 256, 24),  # values up to 31 bits: three pack channels
+])
+def test_encode_blocks_batch_equal(chunk, window, max_match):
+    fields = dict(chunk_size=chunk, window=window, max_match=max_match)
+    data, n, finals = _lanes(chunk)
+    out, lens, ntok = encode_blocks_batch(
+        torch.from_numpy(data), torch.from_numpy(n), torch.from_numpy(finals),
+        TConfig(**fields),
+    )
+    jout, jlens, jntok = j_encode(
+        jnp.asarray(data), jnp.asarray(n), jnp.asarray(finals), JConfig(**fields)
+    )
+    np.testing.assert_array_equal(lens.numpy(), np.asarray(jlens))
+    np.testing.assert_array_equal(ntok.numpy(), np.asarray(jntok))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+    # lanes are self-contained static / stored block runs
+    for b in range(len(n)):
+        body = out[b, : lens[b]].numpy().tobytes()
+        if finals[b]:
+            assert zlib.decompress(body, -15) == data[b, : n[b]].tobytes()
+    assert lens[8] == chunk + 5  # the random tail forces the stored form
+
+
+def test_unported_encoder_options_raise():
+    data = torch.zeros(1, 4096, dtype=torch.uint8)
+    n = torch.tensor([4096], dtype=torch.int32)
+    f = torch.tensor([True])
+    for fields in ({"window": 32768}, {"dynamic_encode": True}, {"lazy": True}):
+        cfg = TConfig(**{**dataclasses.asdict(TConfig()), **fields})
+        with pytest.raises(NotImplementedError):
+            encode_blocks_batch(data, n, f, cfg)

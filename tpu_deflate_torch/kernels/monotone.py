@@ -1,0 +1,55 @@
+"""Multi-channel scatter-add, the encoder's bit-pack (``csrc/monotone.cu``).
+
+    out[b, c, j] = sum of vals[b, c, e] over every e with idx[b, e] == j
+
+Entries with idx outside [0, size) drop out.  The encoder's indices are
+nondecreasing (bit offsets / 8), which the TPU kernel relies on; the CUDA
+kernel does not need it.  The output of
+``tpu_deflate.kernels.monotone.mono_scatter_add``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_deflate_torch.kernels import build
+
+
+def mono_scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor,
+                           size: int) -> torch.Tensor:
+    """Plain version: one masked ``scatter_add`` per batch."""
+    B, C, K = vals.shape
+    drop = (idx < 0) | (idx >= size)
+    tgt = torch.where(drop, 0, idx).to(torch.int64)
+    v = torch.where(drop[:, None, :], 0, vals).to(torch.int32)
+    out = torch.zeros(B, C, size, dtype=torch.int32, device=vals.device)
+    return out.scatter_add_(2, tgt[:, None, :].expand(B, C, K), v)
+
+
+def mono_scatter_add(idx: torch.Tensor, vals: torch.Tensor,
+                     size: int) -> torch.Tensor:
+    """idx int32[B, K], vals int32[B, C, K] -> int32[B, C, size].
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if idx.device.type == "cpu":
+        return mono_scatter_add_plain(idx, vals, size)
+    if idx.dtype != torch.int32 or vals.dtype != torch.int32:
+        raise ValueError("mono_scatter_add: expects int32 idx and vals")
+    build.require_cuda("mono_scatter_add", idx, vals)
+    B, C, K = vals.shape
+    if idx.shape != (B, K):
+        raise ValueError(f"mono_scatter_add: idx {tuple(idx.shape)} vs "
+                         f"vals {tuple(vals.shape)}")
+    out = torch.zeros(B, C, size, dtype=torch.int32, device=vals.device)
+    if B * K == 0:
+        return out
+    code = build.library().mono_scatter_add_launch(
+        idx.data_ptr(), vals.data_ptr(), out.data_ptr(), B, C, K, size,
+        build.stream_handle(idx.device),
+    )
+    build.check(code, "mono_scatter_add")
+    mono_scatter_add.launches += 1
+    return out
+
+
+mono_scatter_add.launches = 0

@@ -1,0 +1,267 @@
+"""Decode stage 1: one lane's bitstream -> tokens (``csrc/tokenize.cu``).
+
+Each lane holds one byte-aligned run of stored and static-Huffman blocks
+starting at bit 0 and ending at ``end_bits[b]``; the lane stops at its
+first end-of-block.  The result is that of
+``tpu_deflate.ops.decode.tokenize(static_only=True, stop_at_eob=True)``,
+run on each lane with ``pwin`` bit positions per pass:
+
+  tk, ta, tb  int32[B, tok_cap]  kind (TK_LIT / TK_MATCH / TK_STORED);
+                                 literal byte, match length or stored
+                                 length; 0, match distance or stored
+                                 block's byte offset in the row
+  ntok, out_total, end_pos, err  int32[B]
+
+The JAX package decodes in passes of ``pwin`` bit positions, and a pass's
+checks decide its error code in the order ERR_OVERFLOW (token capacity),
+ERR_DIST (a distance before the output start), ERR_BAD_CODE; both
+versions here walk the same passes, so they report the same code.  A
+dynamic-tree block gives ERR_DYNAMIC, block type 3 ERR_METHOD.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_deflate_torch.kernels import build
+from tpu_deflate_torch.spec import tables as T
+
+ERR_OK = 0
+ERR_METHOD = 1
+ERR_BAD_CODE = 2
+ERR_DIST = 4
+ERR_OVERFLOW = 5
+ERR_STORED = 6
+ERR_INPUT = 7
+ERR_DYNAMIC = 8
+
+TK_LIT = 0
+TK_MATCH = 1
+TK_STORED = 2
+
+# per-lane modes of the block loop
+M_HEADER = 0
+M_TOKENS = 3
+M_DONE = 4
+M_ERROR = 5
+
+# kinds of the symbol decoded at one bit position
+K_LIT = 0
+K_EOB = 1
+K_MATCH = 2
+K_BAD = 3
+
+
+def _peek(rows: torch.Tensor, pos: torch.Tensor, nbits: int) -> torch.Tensor:
+    """nbits (<= 24) bits at bit position pos of each row; rows int64[S, L]
+    end in zero bytes, and reads past the end see those zeros."""
+    byte = ((pos >> 3)[:, None] + torch.arange(4, device=rows.device))
+    w = torch.gather(rows, 1, byte.clamp(max=rows.shape[1] - 1))
+    acc = w[:, 0] | (w[:, 1] << 8) | (w[:, 2] << 16) | (w[:, 3] << 24)
+    return (acc >> (pos & 7)) & ((1 << nbits) - 1)
+
+
+def _static_plane(rows, base, end, pwin: int):
+    """Candidate symbol at each of the pwin bit positions after base:
+    (kind, adv, ta, tb) int64[S, pwin].  adv is the symbol's total width
+    (1 for K_BAD); positions at or past end are K_BAD."""
+    dev = rows.device
+    S, L = rows.shape
+    U = pwin // 8 + 2
+    byte0 = base >> 3
+    bidx = (byte0[:, None] + torch.arange(U + 7, device=dev)).clamp(max=L - 1)
+    bb = torch.gather(rows, 1, bidx)
+    w = bb[:, :U].clone()
+    for t in range(1, 7):  # 56-bit little-endian word at every byte
+        w |= bb[:, t : t + U] << (8 * t)
+    q = (base & 7)[:, None] + torch.arange(pwin, device=dev)
+    bits = torch.gather(w, 1, q >> 3) >> (q & 7)
+
+    tab = {k: torch.as_tensor(getattr(T, k), device=dev, dtype=torch.int64)
+           for k in ("STATIC_LITLEN_TABLE", "STATIC_DIST_TABLE",
+                     "LENGTH_EXTRA_BITS", "LENGTH_BASE", "DIST_EXTRA_BITS",
+                     "DIST_BASE")}
+    leaf = tab["STATIC_LITLEN_TABLE"][bits & 0x1FF]
+    sym = leaf >> 4
+    nb = leaf & 0xF
+    bad = sym > 285
+    is_lit = sym < 256
+    is_eob = sym == 256
+    i = (sym - 257).clamp(0, 28)
+    ebits = tab["LENGTH_EXTRA_BITS"][i]
+    length = tab["LENGTH_BASE"][i] + ((bits >> nb) & ((1 << ebits) - 1))
+    is_m = ~is_lit & ~is_eob & ~bad
+    doff = nb + torch.where(is_m, ebits, 0)
+    dsym = tab["STATIC_DIST_TABLE"][(bits >> doff) & 31] >> 4
+    bad |= is_m & (dsym > 29)
+    dsym = dsym.clamp(max=29)
+    debits = tab["DIST_EXTRA_BITS"][dsym]
+    dist = tab["DIST_BASE"][dsym] + ((bits >> (doff + 5)) & ((1 << debits) - 1))
+
+    kind = torch.where(is_lit, K_LIT, torch.where(is_eob, K_EOB, K_MATCH))
+    oob = base[:, None] + torch.arange(pwin, device=dev) >= end[:, None]
+    kind = torch.where(bad | oob, K_BAD, kind)
+    is_m = kind == K_MATCH
+    adv = torch.where(is_m, nb + ebits + 5 + debits,
+                      torch.where(kind == K_BAD, 1, nb))
+    ta = torch.where(kind == K_LIT, sym, torch.where(is_m, length, 0))
+    tb = torch.where(is_m, dist, 0)
+    return kind, adv, ta, tb
+
+
+def tokenize_static_plain(rows: torch.Tensor, end_bits: torch.Tensor,
+                          tok_cap: int, pwin: int):
+    """Plain version: the JAX package's block loop, vectorized over lanes.
+    Each pass decodes a candidate at every bit position of its window and
+    finds the true symbol starts with ``chase_reach``."""
+    # ops.decode imports this module, so its chase is looked up at call time
+    from tpu_deflate_torch.ops.decode import chase_reach
+
+    dev = rows.device
+    B, M = rows.shape
+    i64 = torch.int64
+    ext = torch.nn.functional.pad(rows.to(i64), (0, pwin // 8 + 16))
+    end = end_bits.to(i64)
+    pos = torch.zeros(B, dtype=i64, device=dev)
+    mode = torch.full((B,), M_HEADER, dtype=i64, device=dev)
+    tp = torch.zeros(B, dtype=i64, device=dev)
+    total = torch.zeros(B, dtype=i64, device=dev)
+    err = torch.zeros(B, dtype=i64, device=dev)
+    # one spare column takes the writes of positions that are not tokens
+    tk, ta, tb = (torch.zeros(B, tok_cap + 1, dtype=i64, device=dev)
+                  for _ in range(3))
+    lanes = torch.arange(B, device=dev)
+
+    def active():
+        return ((mode < M_DONE) & (pos <= 8 * M) & (pos < end)
+                & (tp < tok_cap - 1))
+
+    def header(sel):
+        s = lanes[sel]
+        if s.numel() == 0:
+            return
+        p0, rs = pos[s], ext[s]
+        bfinal = _peek(rs, p0, 1)
+        btype = _peek(rs, p0 + 1, 2)
+        # stored: LEN / NLEN at the next byte boundary, data after them
+        p = (p0 + 3 + 7) & ~7
+        ln = _peek(rs, p, 16)
+        ok = ln == (_peek(rs, p + 16, 16) ^ 0xFFFF)
+        st = btype == 0
+        ss, slot = s[st], tp[s][st]
+        tk[ss, slot] = TK_STORED
+        ta[ss, slot] = ln[st]
+        tb[ss, slot] = (p[st] + 32) >> 3
+        tp[s] += st.to(i64)
+        total[s] += torch.where(st, ln, 0)
+        new_pos = torch.where(st, p + 32 + 8 * ln,
+                              torch.where(btype == 1, p0 + 3, p0))
+        pos[s] = new_pos
+        stored_mode = torch.where(
+            ok, torch.where(bfinal == 1, M_DONE, M_HEADER), M_ERROR
+        )
+        mode[s] = torch.where(
+            st, stored_mode, torch.where(btype == 1, M_TOKENS, M_ERROR)
+        )
+        code = torch.where(
+            st, torch.where(ok, err[s], ERR_STORED),
+            torch.where(btype == 1, err[s],
+                        torch.where(btype == 2, ERR_DYNAMIC, ERR_METHOD)),
+        )
+        err[s] = code
+
+    def block_pass(sel):
+        s = lanes[sel]
+        if s.numel() == 0:
+            return
+        base = pos[s]
+        kind, adv, tav, tbv = _static_plane(ext[s], base, end[s], pwin)
+        term = (kind == K_EOB) | (kind == K_BAD)
+        reach = chase_reach(adv, term)
+        rel = torch.arange(pwin, device=dev)
+        tmask = reach & ((kind == K_LIT) | (kind == K_MATCH))
+        ordn = torch.cumsum(tmask, 1)
+        ntok = ordn[:, -1]
+        tp_s, tot_s = tp[s], total[s]
+        cap_ok = tp_s + ntok < tok_cap - 1
+        produced = torch.where(tmask, torch.where(kind == K_LIT, 1, tav), 0)
+        before = tot_s[:, None] + torch.cumsum(produced, 1) - produced
+        too_far = cap_ok & (tmask & (kind == K_MATCH) & (tbv > before)).any(1)
+        bad = (reach & (kind == K_BAD)).any(1)
+        eob = reach & (kind == K_EOB)
+        eob_hit = eob.any(1)
+        eob_rel = torch.where(eob, rel, -1).amax(1)
+        last_rel = torch.where(reach, rel, -1).amax(1)
+        stop = torch.where(eob_hit, eob_rel, last_rel)
+        pos[s] = base + stop + torch.gather(adv, 1, stop[:, None])[:, 0]
+
+        slot = torch.where(tmask & cap_ok[:, None], tp_s[:, None] + ordn - 1,
+                           tok_cap)
+        tk[s] = tk[s].scatter(1, slot, (kind == K_MATCH).to(i64))
+        ta[s] = ta[s].scatter(1, slot, tav)
+        tb[s] = tb[s].scatter(1, slot, tbv)
+        tp[s] = tp_s + torch.where(cap_ok, ntok, 0)
+        total[s] = tot_s + torch.where(cap_ok, produced.sum(1), 0)
+
+        anybad = bad | too_far | ~cap_ok
+        mode[s] = torch.where(anybad, M_ERROR,
+                              torch.where(eob_hit, M_DONE, M_TOKENS))
+        err[s] = torch.where(
+            anybad,
+            torch.where(too_far, ERR_DIST,
+                        torch.where(cap_ok, ERR_BAD_CODE, ERR_OVERFLOW)),
+            err[s],
+        )
+
+    header(active())  # the first header, then the block loop
+    while True:
+        live = active()
+        if not bool(live.any()):
+            break
+        header(live & (mode == M_HEADER))
+        block_pass(live & (mode == M_TOKENS))
+
+    clean = (mode == M_DONE) | ((err == ERR_OK) & (pos >= end)
+                                & (mode == M_HEADER))
+    unfinished = torch.where(tp >= tok_cap - 1, ERR_OVERFLOW, ERR_INPUT)
+    err = torch.where(clean | (err != ERR_OK), err, unfinished)
+    i32 = torch.int32
+    return (tk[:, :tok_cap].to(i32), ta[:, :tok_cap].to(i32),
+            tb[:, :tok_cap].to(i32), tp.to(i32), total.to(i32), pos.to(i32),
+            err.to(i32))
+
+
+def tokenize_static_batch(rows: torch.Tensor, end_bits: torch.Tensor,
+                          tok_cap: int, pwin: int):
+    """Tokenize rows uint8[B, M] up to end_bits int32[B].
+
+    Returns (tk, ta, tb, ntok, out_total, end_pos, err), see the module
+    docstring.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
+    if rows.device.type == "cpu":
+        return tokenize_static_plain(rows, end_bits, tok_cap, pwin)
+    if rows.dtype != torch.uint8 or end_bits.dtype != torch.int32:
+        raise ValueError("tokenize_static_batch: expects uint8 rows, "
+                         "int32 end_bits")
+    build.require_cuda("tokenize_static_batch", rows, end_bits)
+    B, M = rows.shape
+    dev = rows.device
+    tk, ta, tb = (torch.zeros(B, tok_cap, dtype=torch.int32, device=dev)
+                  for _ in range(3))
+    ntok, out_total, end_pos, err = (
+        torch.empty(B, dtype=torch.int32, device=dev) for _ in range(4)
+    )
+    if B == 0:
+        return tk, ta, tb, ntok, out_total, end_pos, err
+    code = build.library().tokenize_static_launch(
+        rows.data_ptr(), end_bits.data_ptr(), tk.data_ptr(), ta.data_ptr(),
+        tb.data_ptr(), ntok.data_ptr(), out_total.data_ptr(),
+        end_pos.data_ptr(), err.data_ptr(), B, M, tok_cap, pwin,
+        build.stream_handle(dev),
+    )
+    build.check(code, "tokenize_static")
+    tokenize_static_batch.launches += 1
+    return tk, ta, tb, ntok, out_total, end_pos, err
+
+
+tokenize_static_batch.launches = 0
