@@ -14,14 +14,22 @@ Phases, each of which raises on failure:
                stream; every kernel must have launched
   5. stored  — the same with 256 KiB of seeded random bytes spliced in,
                so stored lanes go through the tokenizer and the expander
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+  6. dynamic — the 8 MiB through compress_indexed and decompress_indexed
+               with dynamic trees (window 256, max_match 10); the stream's
+               length and sha256 must equal the JAX package's, pinned
+               below, and zlib must read it; every kernel of the path must
+               have launched; then a mixed batch of dynamic, stored and
+               short-code lanes
+Phase 3 also checks the dynamic path's two kernels on its 128 lanes.  The
+line before the last is {"kernels": [...]}, each kernel's launches counted
+on its own path (4 or 6); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import gzip
 import hashlib
+import itertools
 import json
 import os
 import subprocess
@@ -34,6 +42,12 @@ CORPUS = os.path.join(REPO, "tests", "data", "corpus.bin.gz")
 CORPUS_SHA = "849e6293c67ab78bf5854ce09a7b27168557ca47b4e2603a50ef6c129f363d41"
 SIZE = 8 << 20
 SEED = 1951
+# the JAX package's compress_indexed of the 8 MiB above (tpu_deflate on
+# the CPU): (length, sha256) with DEFAULT and with dynamic trees
+PIN_STATIC = (4869675,
+              "9db8f28dac24c06f49303b3b97b33c2d28972cda04a0caa3bc00ed46e2cef786")
+PIN_DYNAMIC = (3695814,
+               "b9db8274d7ff8988ce18f8e79e3e8dd2d814da3f09b9d8f016a8383b13ae0faa")
 
 
 def require(ok: bool, what: str) -> None:
@@ -80,12 +94,35 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def require_pinned(stream: bytes, pin, what: str) -> None:
+    got = (len(stream), hashlib.sha256(stream).hexdigest())
+    require(got == pin, f"{what} stream {got} differs from the JAX package's {pin}")
+
+
+def capture(module, name: str, calls: list):
+    """Replace module.name by a wrapper that records each call's args in
+    calls; returns the original, to be put back."""
+    fn = getattr(module, name)
+
+    def wrapper(*args):
+        calls.append(args)
+        return fn(*args)
+
+    setattr(module, name, wrapper)
+    return fn
+
+
 def main() -> None:
     import torch
 
     require(torch.cuda.is_available(), "no CUDA device")
     sys.path.insert(0, REPO)
-    from tpu_deflate_torch import DEFAULT, compress_indexed, decompress_indexed
+    from tpu_deflate_torch import (
+        DEFAULT,
+        DeflateConfig,
+        compress_indexed,
+        decompress_indexed,
+    )
     from tpu_deflate_torch.kernels import build
     from tpu_deflate_torch.kernels.expand3 import expand_fused3, expand_fused3_plain
     from tpu_deflate_torch.kernels.match2 import (
@@ -93,12 +130,18 @@ def main() -> None:
         match_bitplane_plain,
     )
     from tpu_deflate_torch.kernels.monotone import (
+        mono_compact,
+        mono_compact_plain,
         mono_scatter_add,
         mono_scatter_add_plain,
     )
     from tpu_deflate_torch.kernels.tokenize import (
         tokenize_static_batch,
         tokenize_static_plain,
+    )
+    from tpu_deflate_torch.kernels.tokenize_dyn import (
+        tokenize_dyn_batch,
+        tokenize_dyn_plain,
     )
     from tpu_deflate_torch.ops import decode as D
     from tpu_deflate_torch.ops import encode as E
@@ -133,12 +176,26 @@ def main() -> None:
     vals, nbs, offs, _bits, _ntok = E._encode_emissions(
         chunks, lens, finals, dist, length
     )
-    idx, ch = E._bitpack_entries(vals, nbs, offs, cfg.max_match)
+    idx, ch = E._bitpack_entries(vals, nbs, offs, E._emission_bits(cfg))
     rows, out_lens, _ = E.encode_blocks_batch(chunks, lens, finals, cfg)
     ends = 8 * out_lens
     tok_cap, pwin = chunk + 16, D.chunk_pwin(chunk)
     tk, ta, tb, tp, *_ = tokenize_static_batch(rows, ends, tok_cap, pwin)
     off, c1, total = D._expand_inputs(tk, ta, tp)
+
+    # the dynamic path's lanes: the same chunks with dynamic trees, their
+    # header parse, and the code-length paint's inputs inside it
+    dcfg = DeflateConfig(window=256, max_match=10, chunk_size=chunk,
+                         dynamic_encode=True)
+    drows, dout_lens, _ = E.encode_blocks_batch(chunks, lens, finals, dcfg)
+    dends = 8 * dout_lens
+    paints = []
+    orig = capture(D, "mono_compact", paints)
+    prep = D.dyn_header_params_batch(drows, dends)
+    D.mono_compact = orig
+    coded, starts, status = D.dyn_lanes(prep)
+    require(bool(coded.all()), "a corpus lane is stored with dynamic trees on")
+    log(f"dynamic trees on {int((prep['btype'] == 2).sum())} of {B} lanes")
 
     cases = [
         ("match_bitplane_batch", "match2.cu", "tpu_deflate/kernels/match2.py:201",
@@ -153,6 +210,12 @@ def main() -> None:
         ("expand_fused3", "expand3.cu", "tpu_deflate/kernels/expand3.py:389",
          expand_fused3, expand_fused3_plain,
          (rows, off, c1, tb, tp, total, chunk)),
+        ("tokenize_dyn_batch", "tokenize_dyn.cu",
+         "tpu_deflate/kernels/tokenize_dyn.py:465",
+         tokenize_dyn_batch, tokenize_dyn_plain,
+         (drows, dends, prep["tab"], starts, status, tok_cap, pwin)),
+        ("mono_compact", "monotone.cu", "tpu_deflate/kernels/monotone.py:243",
+         mono_compact, mono_compact_plain, paints[0]),
     ]
     results = []
     for kname, src, replaces, kern, plain, args in cases:
@@ -173,6 +236,7 @@ def main() -> None:
         ))
 
     # ---- 4. the main path -----------------------------------------------
+    static_path = results[:4]
     for r in results:
         r["fn"].launches = 0
     t0 = time.perf_counter()
@@ -180,14 +244,16 @@ def main() -> None:
     t1 = time.perf_counter()
     back = decompress_indexed(stream, index, cfg, device=dev)
     t2 = time.perf_counter()
-    for r in results:
-        r["launches"] = r.pop("fn").launches
+    for r in static_path:
+        r["launches"] = r["fn"].launches
     require(zlib.decompress(stream) == data, "zlib rejects the port's stream")
     require(back == data, "decompress_indexed did not return the input")
-    for r in results:
+    require_pinned(stream, PIN_STATIC, "DEFAULT")
+    for r in static_path:
         require(r["launches"] > 0, f"{r['name']} never launched on the main path")
     log(f"main path: {len(data)} B -> {len(stream)} B "
-        f"(ratio {len(stream) / len(data):.4f}), zlib verified; "
+        f"(ratio {len(stream) / len(data):.4f}), zlib verified, equal to "
+        f"the JAX package's stream; "
         f"compress_indexed {len(data) / (t1 - t0) / 1e9:.4f} GB/s, "
         f"decompress_indexed {len(data) / (t2 - t1) / 1e9:.4f} GB/s "
         f"(first call, host clock) on {name}, {smi}")
@@ -217,6 +283,74 @@ def main() -> None:
             "mixed input did not round-trip")
     log(f"stored lanes: {stored} of {len(index2)} lanes stored, round trip ok")
 
+    # ---- 6. dynamic trees -----------------------------------------------
+    dyn_path = ("match_bitplane_batch", "mono_scatter_add", "mono_compact",
+                "tokenize_dyn_batch", "expand_fused3")
+    for r in results:
+        r["fn"].launches = 0
+    t0 = time.perf_counter()
+    dstream, dindex = compress_indexed(data, dcfg, device=dev)
+    t1 = time.perf_counter()
+    dback = decompress_indexed(dstream, dindex, dcfg, device=dev)
+    t2 = time.perf_counter()
+    counts = {r["name"]: r["fn"].launches for r in results}
+    for r in results[4:]:
+        r["launches"] = counts[r["name"]]
+    require(zlib.decompress(dstream) == data, "zlib rejects the dynamic stream")
+    require(dback == data, "the dynamic stream did not round-trip")
+    require_pinned(dstream, PIN_DYNAMIC, "dynamic")
+    for kname in dyn_path:
+        require(counts[kname] > 0, f"{kname} never launched on the dynamic path")
+    log(f"dynamic path: {len(data)} B -> {len(dstream)} B "
+        f"(ratio {len(dstream) / len(data):.4f}), zlib verified, equal to "
+        f"the JAX package's stream; launches {counts}; "
+        f"compress_indexed {len(data) / (t1 - t0) / 1e9:.4f} GB/s, "
+        f"decompress_indexed {len(data) / (t2 - t1) / 1e9:.4f} GB/s "
+        f"(first call, host clock) on {name}, {smi}")
+    denc_ms = cuda_ms(lambda: E.encode_blocks_batch(chunks, lens, finals, dcfg), 5)
+    ddec_ms = cuda_ms(lambda: D.decode_rows_batch(
+        drows, dends, out_cap=chunk, tok_cap=tok_cap, static_only=False), 5)
+    prep_ms = cuda_ms(lambda: D.dyn_header_params_batch(drows, dends), 5)
+    dtok = D.tokenize_rows_batch(drows, dends, tok_cap, pwin, static_only=False)
+    tok_ms = cuda_ms(lambda: D.tokenize_rows_batch(
+        drows, dends, tok_cap, pwin, static_only=False), 5) - prep_ms
+    exp_ms = cuda_ms(lambda: D.expand_batch(drows, *dtok[:4], chunk), 5)
+    api_s = time.perf_counter()
+    for _ in range(3):
+        decompress_indexed(*compress_indexed(data, dcfg, device=dev), dcfg,
+                           device=dev)
+    api_s = (time.perf_counter() - api_s) / 3
+    log(f"dynamic: device encode_blocks_batch {denc_ms:.3f} ms = "
+        f"{SIZE / denc_ms / 1e6:.4f} GB/s; decode_rows_batch(static_only="
+        f"False) {ddec_ms:.3f} ms = {SIZE / ddec_ms / 1e6:.4f} GB/s "
+        f"(header prep {prep_ms:.3f} ms, tokenize {tok_ms:.3f} ms, expand "
+        f"{exp_ms:.3f} ms); API round trip {api_s * 1e3:.1f} ms on {name}, {smi}")
+
+    # stored, short-code and dynamic lanes in one decode call
+    zed = b"z" * chunk
+    mixed3 = data[: 1 << 20] + bytes(noise.numpy()) + zed + data[1 << 20 : 2 << 20]
+    stream3, index3 = compress_indexed(mixed3, dcfg, device=dev)
+    require(zlib.decompress(stream3) == mixed3, "zlib rejects the mixed dynamic stream")
+    body = stream3[2:-4]
+    offs = [0, *itertools.accumulate(int(n) for n in index3)]
+    btypes = [(body[o] >> 1) & 3 for o in offs[:-1]]
+    mrows = torch.zeros(len(index3), int(index3.max()), dtype=torch.uint8)
+    for i in range(len(index3)):
+        mrows[i, : index3[i]] = torch.frombuffer(
+            bytearray(body[offs[i] : offs[i + 1]]), dtype=torch.uint8)
+    mprep = D.dyn_header_params_batch(
+        mrows.to(dev), torch.as_tensor(8 * index3, dtype=torch.int32, device=dev))
+    short = int(((mprep["btype"] == 2) & (mprep["min_len"] < 3)).sum())
+    kinds = {k: btypes.count(k) for k in (0, 1, 2)}
+    require(kinds[0] >= 3 and kinds[2] >= 3 and short >= 1,
+            f"mixed lanes {kinds}, {short} short-code")
+    require(decompress_indexed(stream3, index3, dcfg, device=dev) == mixed3,
+            "the mixed dynamic input did not round-trip")
+    log(f"mixed dynamic batch: {len(index3)} lanes, block types {kinds}, "
+        f"{short} dynamic with codes < 3 bits, round trip ok")
+
+    for r in results:
+        r.pop("fn")
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -70,7 +70,7 @@ def test_unported_encoder_options_raise():
     data = torch.zeros(1, 4096, dtype=torch.uint8)
     n = torch.tensor([4096], dtype=torch.int32)
     f = torch.tensor([True])
-    for fields in ({"window": 32768}, {"dynamic_encode": True}, {"lazy": True}):
+    for fields in ({"window": 32768}, {"lazy": True}):
         cfg = TConfig(**{**dataclasses.asdict(TConfig()), **fields})
         with pytest.raises(NotImplementedError):
             encode_blocks_batch(data, n, f, cfg)

@@ -85,8 +85,11 @@ def decompress_indexed(stream: bytes, index, config: DeflateConfig = DeflateConf
     verifies the Adler-32 trailer.
 
     Every chunk starts byte-aligned, so lane i is the body bytes from the
-    index's i-th offset to the next.  Raises ValueError on a corrupt
-    stream or an index that does not cover it."""
+    index's i-th offset to the next.  Stored and static lanes decode
+    first; dynamic-tree lanes then decode with per-lane code tables, at
+    once where ``config.dynamic_encode`` says the stream has them.
+    Raises ValueError on a corrupt stream or an index that does not cover
+    it, DeflateError on dynamic trees that the config rejects."""
     body = stream[2:-4]
     index = np.asarray(index, dtype=np.int64)
     offsets = np.concatenate([[0], np.cumsum(index)])
@@ -98,23 +101,31 @@ def decompress_indexed(stream: bytes, index, config: DeflateConfig = DeflateConf
     for i in range(nchunks):
         rows[i, : index[i]] = flat[offsets[i] : offsets[i + 1]]
     ends = torch.from_numpy((8 * index).astype(np.int32)).to(device)
+    rows = torch.from_numpy(rows).to(device)
     chunk = config.chunk_size
+
+    # stored / static lanes decode without code tables; a stream with
+    # dynamic trees decodes again with them where the config allows
+    allow_dynamic = config.dynamic and not config.low_lut
+    static_first = not config.dynamic_encode or not allow_dynamic
     outs, totals, errs = decode_rows_batch(
-        torch.from_numpy(rows).to(device), ends, out_cap=chunk,
-        tok_cap=chunk + 16,
+        rows, ends, out_cap=chunk, tok_cap=chunk + 16, static_only=static_first,
     )
     errs = errs.cpu().numpy()
-    bad = errs[(errs != 0) & (errs != ERR_DYNAMIC)]
-    if bad.size:
-        names = sorted({ERR_NAMES.get(int(e), str(e)) for e in bad})
-        raise ValueError(f"inflate error codes {bad[:8]}: {', '.join(names)}")
-    if (errs == ERR_DYNAMIC).any():
-        if not config.dynamic or config.low_lut:
+    if static_first and (errs == ERR_DYNAMIC).any():
+        if not allow_dynamic:
             raise DeflateError(
                 "dynamic-Huffman block rejected: decoder configured with "
                 "dynamic=False/low_lut"
             )
-        raise NotImplementedError("dynamic trees not ported yet")
+        outs, totals, errs = decode_rows_batch(
+            rows, ends, out_cap=chunk, tok_cap=chunk + 16, static_only=False,
+        )
+        errs = errs.cpu().numpy()
+    bad = errs[errs != 0]
+    if bad.size:
+        names = sorted({ERR_NAMES.get(int(e), str(e)) for e in bad})
+        raise ValueError(f"inflate error codes {bad[:8]}: {', '.join(names)}")
     keep = torch.arange(chunk, device=outs.device) < totals[:, None]
     result = outs[keep].cpu().numpy().tobytes()
     if zlib.adler32(result) != int.from_bytes(stream[-4:], "big"):

@@ -52,3 +52,62 @@ extern "C" int mono_scatter_add_launch(const void* idx, const void* vals,
       (const int*)idx, (const int*)vals, (int*)out, B, C, K, size);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// Compaction scatter-add: out[b, c, idx[b, e]] += vals[b, c, e] for a small
+// output, the decoder's code-length paint (K = 4608 entries per lane, C = 2
+// channels, size 320).
+//
+// Replaces: tpu_deflate/kernels/monotone.py, mono_compact (Pallas body
+// _compact_kernel), which paints 2048-entry slabs through one-hot bf16 MXU
+// products and needs the live indices nondecreasing, advancing by at most
+// one per entry.  Here the sums need no order at all.
+//
+// Bound on the card: latency.  A lane's entries are read once, coalesced;
+// most are dead (the window past the header), and the live ones add into
+// shared memory.
+//
+// Design: one block per lane.  The block zeroes a C x size accumulator in
+// shared memory, every thread adds its live entries into it with shared
+// integer atomics (exact in any order), and the block writes it out.  The
+// wrapper refuses outputs larger than MONO_COMPACT_SMEM bytes.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int MONO_COMPACT_SMEM = 48 * 1024;
+
+__global__ void mono_compact_kernel(const int* __restrict__ idx,
+                                    const int* __restrict__ vals,
+                                    int* __restrict__ out, int C, int K,
+                                    int size) {
+  extern __shared__ int acc[];  // [C][size]
+  const int b = blockIdx.x;
+  for (int i = threadIdx.x; i < C * size; i += blockDim.x) acc[i] = 0;
+  __syncthreads();
+  const int* il = idx + (long long)b * K;
+  const int* vl = vals + (long long)b * C * K;
+  for (int e = threadIdx.x; e < K; e += blockDim.x) {
+    const int j = il[e];
+    if (j < 0 || j >= size) continue;
+    for (int c = 0; c < C; ++c) {
+      const int v = vl[(long long)c * K + e];
+      if (v != 0) atomicAdd(acc + c * size + j, v);
+    }
+  }
+  __syncthreads();
+  int* ol = out + (long long)b * C * size;
+  for (int i = threadIdx.x; i < C * size; i += blockDim.x) ol[i] = acc[i];
+}
+
+}  // namespace
+
+extern "C" int mono_compact_launch(const void* idx, const void* vals,
+                                   void* out, int B, int C, int K, int size,
+                                   void* stream) {
+  const size_t smem = sizeof(int) * (size_t)C * size;
+  if (smem > MONO_COMPACT_SMEM) return (int)cudaErrorInvalidValue;
+  mono_compact_kernel<<<B, 512, smem, (cudaStream_t)stream>>>(
+      (const int*)idx, (const int*)vals, (int*)out, C, K, size);
+  return (int)cudaGetLastError();
+}

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-All sources compile with ``nvcc`` into one shared library with a plain C
-interface, bound with ``ctypes``.  The build runs at first use, into
+Each source compiles with its own ``nvcc``, all at once, and the objects
+link into one shared library with a plain C interface, bound with
+``ctypes``.  The build runs at first use, into
 ``build/`` at the repository root, under a name that carries a hash of the
 sources, so an edited kernel is rebuilt and an unchanged one is loaded as
 is.  Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -22,7 +23,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -32,9 +33,12 @@ _I = ctypes.c_int
 SIGNATURES = {
     "match2_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mono_scatter_add_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "mono_compact_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tokenize_static_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _P],
     "expand3_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tokenize_dyn_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -66,17 +70,27 @@ def build() -> pathlib.Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        logs = [(p.communicate()[0], p.returncode) for p in procs]
+        lib = os.path.join(tmp, "lib.so")
+        if all(rc == 0 for _, rc in logs):
+            link = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+                                  capture_output=True, text=True)
+            logs.append((link.stdout + link.stderr, link.returncode))
+        failed = [(out, rc) for out, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"({rc}) {out}" for out, rc in failed))
+        os.replace(lib, path)  # atomic: a concurrent loader sees all or nothing
     return path
 
 

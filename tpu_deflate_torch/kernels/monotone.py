@@ -1,11 +1,19 @@
-"""Multi-channel scatter-add, the encoder's bit-pack (``csrc/monotone.cu``).
+"""Multi-channel scatter-adds (``csrc/monotone.cu``).
 
     out[b, c, j] = sum of vals[b, c, e] over every e with idx[b, e] == j
 
-Entries with idx outside [0, size) drop out.  The encoder's indices are
-nondecreasing (bit offsets / 8), which the TPU kernel relies on; the CUDA
-kernel does not need it.  The output of
-``tpu_deflate.kernels.monotone.mono_scatter_add``.
+Entries with idx outside [0, size) drop out.  Two kernels compute it:
+
+  mono_scatter_add  the encoder's bit-pack; indices nondecreasing (bit
+                    offsets / 8), which the TPU kernel relies on and the
+                    CUDA kernel does not need.  The output of
+                    ``tpu_deflate.kernels.monotone.mono_scatter_add``.
+  mono_compact      the decoder's code-length paint, a small output per
+                    lane.  The output of
+                    ``tpu_deflate.kernels.monotone.mono_compact`` on each
+                    lane, which takes live indices nondecreasing and
+                    advancing by at most one per entry; the CUDA kernel
+                    does not need it.
 """
 
 from __future__ import annotations
@@ -13,6 +21,8 @@ from __future__ import annotations
 import torch
 
 from tpu_deflate_torch.kernels import build
+
+MONO_COMPACT_SMEM = 48 * 1024  # as csrc/monotone.cu
 
 
 def mono_scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor,
@@ -53,3 +63,43 @@ def mono_scatter_add(idx: torch.Tensor, vals: torch.Tensor,
 
 
 mono_scatter_add.launches = 0
+
+
+def mono_compact_plain(idx: torch.Tensor, vals: torch.Tensor,
+                       size: int) -> torch.Tensor:
+    """Plain version: the same masked ``scatter_add`` as the bit-pack's."""
+    return mono_scatter_add_plain(idx, vals, size)
+
+
+def mono_compact(idx: torch.Tensor, vals: torch.Tensor,
+                 size: int) -> torch.Tensor:
+    """idx int32[B, K], vals int32[B, C, K] -> int32[B, C, size], with
+    C * size * 4 <= MONO_COMPACT_SMEM bytes (the kernel's accumulator in
+    shared memory).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if idx.device.type == "cpu":
+        return mono_compact_plain(idx, vals, size)
+    if idx.dtype != torch.int32 or vals.dtype != torch.int32:
+        raise ValueError("mono_compact: expects int32 idx and vals")
+    build.require_cuda("mono_compact", idx, vals)
+    B, C, K = vals.shape
+    if idx.shape != (B, K):
+        raise ValueError(f"mono_compact: idx {tuple(idx.shape)} vs "
+                         f"vals {tuple(vals.shape)}")
+    if 4 * C * size > MONO_COMPACT_SMEM:
+        raise ValueError(f"mono_compact: output of {C} x {size} exceeds "
+                         f"{MONO_COMPACT_SMEM} bytes of shared memory")
+    out = torch.zeros(B, C, size, dtype=torch.int32, device=vals.device)
+    if B * K == 0:
+        return out
+    code = build.library().mono_compact_launch(
+        idx.data_ptr(), vals.data_ptr(), out.data_ptr(), B, C, K, size,
+        build.stream_handle(idx.device),
+    )
+    build.check(code, "mono_compact")
+    mono_compact.launches += 1
+    return out
+
+
+mono_compact.launches = 0

@@ -61,21 +61,28 @@ def _peek(rows: torch.Tensor, pos: torch.Tensor, nbits: int) -> torch.Tensor:
     return (acc >> (pos & 7)) & ((1 << nbits) - 1)
 
 
+def bit_windows(rows: torch.Tensor, base: torch.Tensor, npos: int) -> torch.Tensor:
+    """bits[s, k] = the stream of row s from bit base[s] + k on, at least
+    49 bits valid, int64[S, npos].  rows int64[S, L] end in zero bytes,
+    and reads past the end see those zeros."""
+    dev = rows.device
+    L = rows.shape[1]
+    U = npos // 8 + 2
+    bidx = ((base >> 3)[:, None] + torch.arange(U + 7, device=dev)).clamp(max=L - 1)
+    bb = torch.gather(rows, 1, bidx)
+    w = bb[:, :U].clone()
+    for t in range(1, 7):  # 56-bit little-endian word at every byte
+        w |= bb[:, t : t + U] << (8 * t)
+    q = (base & 7)[:, None] + torch.arange(npos, device=dev)
+    return torch.gather(w, 1, q >> 3) >> (q & 7)
+
+
 def _static_plane(rows, base, end, pwin: int):
     """Candidate symbol at each of the pwin bit positions after base:
     (kind, adv, ta, tb) int64[S, pwin].  adv is the symbol's total width
     (1 for K_BAD); positions at or past end are K_BAD."""
     dev = rows.device
-    S, L = rows.shape
-    U = pwin // 8 + 2
-    byte0 = base >> 3
-    bidx = (byte0[:, None] + torch.arange(U + 7, device=dev)).clamp(max=L - 1)
-    bb = torch.gather(rows, 1, bidx)
-    w = bb[:, :U].clone()
-    for t in range(1, 7):  # 56-bit little-endian word at every byte
-        w |= bb[:, t : t + U] << (8 * t)
-    q = (base & 7)[:, None] + torch.arange(pwin, device=dev)
-    bits = torch.gather(w, 1, q >> 3) >> (q & 7)
+    bits = bit_windows(rows, base, pwin)
 
     tab = {k: torch.as_tensor(getattr(T, k), device=dev, dtype=torch.int64)
            for k in ("STATIC_LITLEN_TABLE", "STATIC_DIST_TABLE",
@@ -109,32 +116,110 @@ def _static_plane(rows, base, end, pwin: int):
     return kind, adv, ta, tb
 
 
+def new_lanes(B: int, tok_cap: int, device) -> dict:
+    """Block-loop state of B lanes at bit 0: pos, mode, tp (tokens so far),
+    total (output bytes so far), err int64[B]; tk, ta, tb int64[B,
+    tok_cap + 1], whose spare last column takes the writes of positions
+    that are not tokens."""
+    i64 = torch.int64
+    st = {k: torch.zeros(B, dtype=i64, device=device)
+          for k in ("pos", "mode", "tp", "total", "err")}
+    for k in ("tk", "ta", "tb"):
+        st[k] = torch.zeros(B, tok_cap + 1, dtype=i64, device=device)
+    return st
+
+
+def block_pass(st: dict, s: torch.Tensor, plane, tok_cap: int) -> None:
+    """One pass of the lanes s over their candidate plane (kind, adv, ta,
+    tb) int64[S, pwin], taken from bit st["pos"][s]: the true symbols are
+    the positions reachable from the first, and the pass ends at an
+    end-of-block, a bad code, or the first symbol past the window.
+    Updates st in place."""
+    # ops.decode imports this module, so its chase is looked up at call time
+    from tpu_deflate_torch.ops.decode import chase_reach
+
+    kind, adv, tav, tbv = plane
+    i64 = torch.int64
+    pwin = kind.shape[1]
+    base = st["pos"][s]
+    term = (kind == K_EOB) | (kind == K_BAD)
+    reach = chase_reach(adv, term)
+    rel = torch.arange(pwin, device=kind.device)
+    tmask = reach & ((kind == K_LIT) | (kind == K_MATCH))
+    ordn = torch.cumsum(tmask, 1)
+    ntok = ordn[:, -1]
+    tp_s, tot_s = st["tp"][s], st["total"][s]
+    cap_ok = tp_s + ntok < tok_cap - 1
+    produced = torch.where(tmask, torch.where(kind == K_LIT, 1, tav), 0)
+    before = tot_s[:, None] + torch.cumsum(produced, 1) - produced
+    too_far = cap_ok & (tmask & (kind == K_MATCH) & (tbv > before)).any(1)
+    bad = (reach & (kind == K_BAD)).any(1)
+    eob = reach & (kind == K_EOB)
+    eob_hit = eob.any(1)
+    eob_rel = torch.where(eob, rel, -1).amax(1)
+    last_rel = torch.where(reach, rel, -1).amax(1)
+    stop = torch.where(eob_hit, eob_rel, last_rel)
+    st["pos"][s] = base + stop + torch.gather(adv, 1, stop[:, None])[:, 0]
+
+    slot = torch.where(tmask & cap_ok[:, None], tp_s[:, None] + ordn - 1,
+                       tok_cap)
+    st["tk"][s] = st["tk"][s].scatter(1, slot, (kind == K_MATCH).to(i64))
+    st["ta"][s] = st["ta"][s].scatter(1, slot, tav)
+    st["tb"][s] = st["tb"][s].scatter(1, slot, tbv)
+    st["tp"][s] = tp_s + torch.where(cap_ok, ntok, 0)
+    st["total"][s] = tot_s + torch.where(cap_ok, produced.sum(1), 0)
+
+    anybad = bad | too_far | ~cap_ok
+    st["mode"][s] = torch.where(anybad, M_ERROR,
+                                torch.where(eob_hit, M_DONE, M_TOKENS))
+    st["err"][s] = torch.where(
+        anybad,
+        torch.where(too_far, ERR_DIST,
+                    torch.where(cap_ok, ERR_BAD_CODE, ERR_OVERFLOW)),
+        st["err"][s],
+    )
+
+
+def in_bounds(st: dict, end: torch.Tensor, nbits: int, tok_cap: int):
+    """bool[B]: the block loop may go on (pos inside the row and before
+    the lane's end, token capacity left)."""
+    pos = st["pos"]
+    return (pos <= nbits) & (pos < end) & (st["tp"] < tok_cap - 1)
+
+
+def finish(st: dict, end: torch.Tensor, tok_cap: int):
+    """The block loop's results as int32: (tk, ta, tb, ntok, out_total,
+    end_pos, err); a lane that stopped short of an end-of-block without
+    an error reports ERR_OVERFLOW or ERR_INPUT."""
+    mode, err, tp = st["mode"], st["err"], st["tp"]
+    clean = (mode == M_DONE) | ((err == ERR_OK) & (st["pos"] >= end)
+                                & (mode == M_HEADER))
+    unfinished = torch.where(tp >= tok_cap - 1, ERR_OVERFLOW, ERR_INPUT)
+    err = torch.where(clean | (err != ERR_OK), err, unfinished)
+    i32 = torch.int32
+    return (st["tk"][:, :tok_cap].to(i32), st["ta"][:, :tok_cap].to(i32),
+            st["tb"][:, :tok_cap].to(i32), tp.to(i32), st["total"].to(i32),
+            st["pos"].to(i32), err.to(i32))
+
+
 def tokenize_static_plain(rows: torch.Tensor, end_bits: torch.Tensor,
                           tok_cap: int, pwin: int):
     """Plain version: the JAX package's block loop, vectorized over lanes.
     Each pass decodes a candidate at every bit position of its window and
     finds the true symbol starts with ``chase_reach``."""
-    # ops.decode imports this module, so its chase is looked up at call time
-    from tpu_deflate_torch.ops.decode import chase_reach
-
     dev = rows.device
     B, M = rows.shape
     i64 = torch.int64
     ext = torch.nn.functional.pad(rows.to(i64), (0, pwin // 8 + 16))
     end = end_bits.to(i64)
-    pos = torch.zeros(B, dtype=i64, device=dev)
-    mode = torch.full((B,), M_HEADER, dtype=i64, device=dev)
-    tp = torch.zeros(B, dtype=i64, device=dev)
-    total = torch.zeros(B, dtype=i64, device=dev)
-    err = torch.zeros(B, dtype=i64, device=dev)
-    # one spare column takes the writes of positions that are not tokens
-    tk, ta, tb = (torch.zeros(B, tok_cap + 1, dtype=i64, device=dev)
-                  for _ in range(3))
+    st = new_lanes(B, tok_cap, dev)
+    pos, mode, tp, total, err = (st[k] for k in
+                                 ("pos", "mode", "tp", "total", "err"))
+    tk, ta, tb = st["tk"], st["ta"], st["tb"]
     lanes = torch.arange(B, device=dev)
 
     def active():
-        return ((mode < M_DONE) & (pos <= 8 * M) & (pos < end)
-                & (tp < tok_cap - 1))
+        return (mode < M_DONE) & in_bounds(st, end, 8 * M, tok_cap)
 
     def header(sel):
         s = lanes[sel]
@@ -147,71 +232,34 @@ def tokenize_static_plain(rows: torch.Tensor, end_bits: torch.Tensor,
         p = (p0 + 3 + 7) & ~7
         ln = _peek(rs, p, 16)
         ok = ln == (_peek(rs, p + 16, 16) ^ 0xFFFF)
-        st = btype == 0
-        ss, slot = s[st], tp[s][st]
+        st_ = btype == 0
+        ss, slot = s[st_], tp[s][st_]
         tk[ss, slot] = TK_STORED
-        ta[ss, slot] = ln[st]
-        tb[ss, slot] = (p[st] + 32) >> 3
-        tp[s] += st.to(i64)
-        total[s] += torch.where(st, ln, 0)
-        new_pos = torch.where(st, p + 32 + 8 * ln,
+        ta[ss, slot] = ln[st_]
+        tb[ss, slot] = (p[st_] + 32) >> 3
+        tp[s] += st_.to(i64)
+        total[s] += torch.where(st_, ln, 0)
+        new_pos = torch.where(st_, p + 32 + 8 * ln,
                               torch.where(btype == 1, p0 + 3, p0))
         pos[s] = new_pos
         stored_mode = torch.where(
             ok, torch.where(bfinal == 1, M_DONE, M_HEADER), M_ERROR
         )
         mode[s] = torch.where(
-            st, stored_mode, torch.where(btype == 1, M_TOKENS, M_ERROR)
+            st_, stored_mode, torch.where(btype == 1, M_TOKENS, M_ERROR)
         )
         code = torch.where(
-            st, torch.where(ok, err[s], ERR_STORED),
+            st_, torch.where(ok, err[s], ERR_STORED),
             torch.where(btype == 1, err[s],
                         torch.where(btype == 2, ERR_DYNAMIC, ERR_METHOD)),
         )
         err[s] = code
 
-    def block_pass(sel):
+    def static_pass(sel):
         s = lanes[sel]
         if s.numel() == 0:
             return
-        base = pos[s]
-        kind, adv, tav, tbv = _static_plane(ext[s], base, end[s], pwin)
-        term = (kind == K_EOB) | (kind == K_BAD)
-        reach = chase_reach(adv, term)
-        rel = torch.arange(pwin, device=dev)
-        tmask = reach & ((kind == K_LIT) | (kind == K_MATCH))
-        ordn = torch.cumsum(tmask, 1)
-        ntok = ordn[:, -1]
-        tp_s, tot_s = tp[s], total[s]
-        cap_ok = tp_s + ntok < tok_cap - 1
-        produced = torch.where(tmask, torch.where(kind == K_LIT, 1, tav), 0)
-        before = tot_s[:, None] + torch.cumsum(produced, 1) - produced
-        too_far = cap_ok & (tmask & (kind == K_MATCH) & (tbv > before)).any(1)
-        bad = (reach & (kind == K_BAD)).any(1)
-        eob = reach & (kind == K_EOB)
-        eob_hit = eob.any(1)
-        eob_rel = torch.where(eob, rel, -1).amax(1)
-        last_rel = torch.where(reach, rel, -1).amax(1)
-        stop = torch.where(eob_hit, eob_rel, last_rel)
-        pos[s] = base + stop + torch.gather(adv, 1, stop[:, None])[:, 0]
-
-        slot = torch.where(tmask & cap_ok[:, None], tp_s[:, None] + ordn - 1,
-                           tok_cap)
-        tk[s] = tk[s].scatter(1, slot, (kind == K_MATCH).to(i64))
-        ta[s] = ta[s].scatter(1, slot, tav)
-        tb[s] = tb[s].scatter(1, slot, tbv)
-        tp[s] = tp_s + torch.where(cap_ok, ntok, 0)
-        total[s] = tot_s + torch.where(cap_ok, produced.sum(1), 0)
-
-        anybad = bad | too_far | ~cap_ok
-        mode[s] = torch.where(anybad, M_ERROR,
-                              torch.where(eob_hit, M_DONE, M_TOKENS))
-        err[s] = torch.where(
-            anybad,
-            torch.where(too_far, ERR_DIST,
-                        torch.where(cap_ok, ERR_BAD_CODE, ERR_OVERFLOW)),
-            err[s],
-        )
+        block_pass(st, s, _static_plane(ext[s], pos[s], end[s], pwin), tok_cap)
 
     header(active())  # the first header, then the block loop
     while True:
@@ -219,16 +267,8 @@ def tokenize_static_plain(rows: torch.Tensor, end_bits: torch.Tensor,
         if not bool(live.any()):
             break
         header(live & (mode == M_HEADER))
-        block_pass(live & (mode == M_TOKENS))
-
-    clean = (mode == M_DONE) | ((err == ERR_OK) & (pos >= end)
-                                & (mode == M_HEADER))
-    unfinished = torch.where(tp >= tok_cap - 1, ERR_OVERFLOW, ERR_INPUT)
-    err = torch.where(clean | (err != ERR_OK), err, unfinished)
-    i32 = torch.int32
-    return (tk[:, :tok_cap].to(i32), ta[:, :tok_cap].to(i32),
-            tb[:, :tok_cap].to(i32), tp.to(i32), total.to(i32), pos.to(i32),
-            err.to(i32))
+        static_pass(live & (mode == M_TOKENS))
+    return finish(st, end, tok_cap)
 
 
 def tokenize_static_batch(rows: torch.Tensor, end_bits: torch.Tensor,

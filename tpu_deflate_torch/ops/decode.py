@@ -1,7 +1,9 @@
 """Chunk-parallel decode of the indexed container: stage 1 tokenizes each
-lane's bitstream (``kernels/tokenize.py``), stage 2 expands the tokens
-into bytes (``kernels/expand3.py``).  Also the reachability chase shared
-with the encoder's greedy parse.
+lane's bitstream (``kernels/tokenize.py`` for stored and static blocks,
+``kernels/tokenize_dyn.py`` for one static- or dynamic-tree block from
+per-lane code tables), stage 2 expands the tokens into bytes
+(``kernels/expand3.py``).  Also the dynamic block header's parse and the
+reachability chase shared with the encoder's greedy parse.
 """
 
 from __future__ import annotations
@@ -11,19 +13,29 @@ import math
 import torch
 
 from tpu_deflate_torch.kernels.expand3 import expand_fused3
+from tpu_deflate_torch.kernels.monotone import mono_compact
 from tpu_deflate_torch.kernels.tokenize import (
     ERR_BAD_CODE,
     ERR_DIST,
     ERR_DYNAMIC,
     ERR_INPUT,
     ERR_METHOD,
+    ERR_OK,
     ERR_OVERFLOW,
     ERR_STORED,
     TK_LIT,
     TK_MATCH,
     TK_STORED,
+    bit_windows,
     tokenize_static_batch,
 )
+from tpu_deflate_torch.kernels.tokenize_dyn import (
+    TAB_W,
+    code_rank,
+    rev15,
+    tokenize_dyn_batch,
+)
+from tpu_deflate_torch.spec import tables as T
 
 ERR_NAMES = {
     ERR_METHOD: "bad block method",
@@ -116,15 +128,268 @@ def chunk_pwin(chunk: int) -> int:
     return 17 << k
 
 
-def decode_rows_batch(rows: torch.Tensor, ends: torch.Tensor, out_cap: int,
-                      tok_cap: int):
-    """Chunk-parallel decode of per-lane rows uint8[B, M], each one
-    byte-aligned run of stored / static blocks ending at bit ends[b].
-    Lanes stop at their first end-of-block.  Returns (out uint8[B,
-    out_cap], totals int32[B], errs int32[B])."""
-    ends = ends.to(torch.int32)
-    tk, ta, tb, tp, _tot, _pos, err = tokenize_static_batch(
-        rows, ends, tok_cap, chunk_pwin(out_cap)
+# ---------------------------------------------------------------------------
+# Dynamic block header: canonical code parameters and the code lengths
+# ---------------------------------------------------------------------------
+
+MAX_SYMS = 320  # 288 literal/length + 32 distance code lengths
+CL_WIN = 4608  # bits searched for the code lengths: <= 316 lengths, each
+# op <= 7 (code-length code) + 7 (repeat extra) bits, < 4424 bits in all
+
+
+def canon_params(lengths: torch.Tensor, n_sym: int):
+    """Comparison-decode parameters of canonical codes with lengths
+    int64[B, S]: (lim, rd int64[B, 16], sym int64[B, n_sym] = the symbol
+    of each rank, -1 for a dead rank, oversubscribed bool[B]).
+
+    A code of length L has an MSB-first 15-bit prefix v with lim[L-1] <= v
+    < lim[L], lim[L] = (next_code[L] + count[L]) << (15 - L) made
+    nondecreasing, and rank (v >> (15 - L)) + rd[L], rd[L] = (codes shorter
+    than L) - next_code[L]."""
+    B, S = lengths.shape
+    dev = lengths.device
+    i64 = torch.int64
+    valid = (lengths > 0) & (lengths <= 15)
+    Lc = lengths.clamp(0, 15)
+    count = torch.zeros(B, 16, dtype=i64, device=dev).scatter_add(
+        1, Lc, valid.to(i64))
+    count[:, 0] = 0
+    next_code = torch.zeros(B, 16, dtype=i64, device=dev)
+    for L in range(1, 16):
+        next_code[:, L] = (next_code[:, L - 1] + count[:, L - 1]) << 1
+    before = torch.cumsum(count, 1) - count
+    shift = (15 - torch.arange(16, device=dev)).clamp(0, 15)
+    lim = torch.where(torch.arange(16, device=dev) > 0,
+                      (next_code + count) << shift, 0)
+    lim = torch.cummax(lim, 1).values
+    rd = before - next_code
+    kraft = torch.where(valid, 1 << (15 - Lc), 0).sum(1)
+    # rank: codes shorter, then codes of the same length at a smaller symbol
+    eq = (Lc[:, None, :] == torch.arange(1, 16, device=dev)[None, :, None]) \
+        & valid[:, None, :]
+    within = torch.where(eq, torch.cumsum(eq, 2) - eq.to(i64), 0).sum(1)
+    rank = torch.gather(before, 1, Lc) + within
+    slot = torch.where(valid & (rank < n_sym), rank, n_sym)
+    sym = torch.full((B, n_sym + 1), -1, dtype=i64, device=dev).scatter(
+        1, slot, torch.arange(S, device=dev).expand(B, S))
+    return lim, rd, sym[:, :n_sym], kraft > (1 << 15)
+
+
+def decode_cl_lengths(rows: torch.Tensor, pos0: torch.Tensor,
+                      target: torch.Tensor, cl_lim, cl_rd, cl_sym):
+    """The HLIT + HDIST code lengths of each lane's dynamic header, from
+    rows int64[B, L] (zero bytes after the data) at bit pos0 int64[B]:
+    (lengths int64[B, MAX_SYMS], end_next int64[B] = bit offset from pos0
+    of the first symbol after the header, -1 if the lengths do not end on
+    a symbol, ok bool[B]).
+
+    A code-length symbol is decoded at each of the CL_WIN positions, the
+    true ones are those reachable from the first (``chase_reach``), the
+    repeats of code 16 read the previous length by a forward fill, and
+    each op's run of lengths is painted from its start by ``mono_compact``
+    (the op starts are strictly increasing) and filled forward."""
+    B = rows.shape[0]
+    dev = rows.device
+    i64 = torch.int64
+    bits = bit_windows(rows, pos0, CL_WIN)
+    nb, nbc, rank = code_rank(rev15(bits), cl_lim, cl_rd)
+    sym = torch.gather(cl_sym, 1, rank.clamp(0, 18))
+    bad = (nb > 7) | (rank < 0) | (rank > 18) | (sym < 0)
+    x7 = (bits >> nbc) & 0x7F
+    ebits = torch.where(sym == 16, 2, torch.where(sym == 17, 3,
+                        torch.where(sym == 18, 7, 0)))
+    count = torch.where(sym < 16, 1, torch.where(
+        sym == 16, 3 + (x7 & 3),
+        torch.where(sym == 17, 3 + (x7 & 7), 11 + x7)))
+    adv = torch.where(bad, 1, nbc + ebits)
+    sym = torch.where(bad, -1, sym)
+    term = sym < 0
+    reached = chase_reach(adv, term)
+
+    pidx = torch.arange(CL_WIN, device=dev)
+    opc = torch.where(reached & ~term, count, 0)
+    cum = torch.cumsum(opc, 1)
+    cum_ex = cum - opc
+    live = reached & ~term & (cum_ex < target[:, None])
+    total = torch.where(live, cum, 0).amax(1)
+    end_next = torch.where(live & (cum == target[:, None]), pidx + adv,
+                           -1).amax(1)
+
+    # code 16 repeats the previous length: the last literal length or zero
+    # run before it, found by a running max of (position, value + 1)
+    setk = torch.where(live & (sym < 16), (pidx << 9) | (sym + 1),
+                       torch.where(live & (sym >= 17), (pidx << 9) | 1, -1))
+    fill = torch.cummax(setk, 1).values
+    bad16 = (live & (sym == 16) & (fill < 0)).any(1)
+    assign = torch.where(sym < 16, sym,
+                         torch.where(sym == 16, (fill & 0x1FF) - 1, 0))
+
+    # paint (start, value + 1) at each op's first length, +1 so that an
+    # empty slot reads 0, in two 14-bit channels
+    q = torch.where(live, ((cum_ex << 9) | (assign + 1)) + 1, 0)
+    idx = torch.where(live, cum_ex, MAX_SYMS).to(torch.int32)
+    ch = torch.stack([q & 0x3FFF, q >> 14], 1).to(torch.int32)
+    comp = mono_compact(idx, ch, MAX_SYMS).to(i64)
+    arr = comp[:, 0] + (comp[:, 1] << 14) - 1
+    farr = torch.cummax(arr, 1).values
+    sidx = torch.arange(MAX_SYMS, device=dev)
+    lengths = torch.where((sidx < target[:, None]) & (farr >= 0),
+                          (farr & 0x1FF) - 1, 0)
+    ok = (total == target) & ~bad16 & (end_next >= 0)
+    return lengths, end_next, ok
+
+
+def _pack_fields(v: torch.Tensor, per: int, bits: int) -> torch.Tensor:
+    """``per`` consecutive ``bits``-bit values of v int64[B, K] per int32
+    (two's complement), K % per == 0."""
+    B, K = v.shape
+    sh = bits * torch.arange(per, device=v.device)
+    w = (v.reshape(B, K // per, per) << sh).sum(2)
+    return ((w + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def pack_block_tab(lit_lengths: torch.Tensor, dist_lengths: torch.Tensor,
+                   start: torch.Tensor):
+    """Packed code tables of one block per lane, from lit_lengths int64[B,
+    288], dist_lengths int64[B, 32] and the first symbol's bit start[B]:
+    (tab int64[B, TAB_W] in the ``kernels.tokenize_dyn`` layout, with no
+    output before the block, min_len int64[B] = the shortest
+    literal/length code, trees_ok bool[B] = neither tree
+    oversubscribed)."""
+    B = lit_lengths.shape[0]
+    dev = lit_lengths.device
+    llim, lrd, lsym, lover = canon_params(lit_lengths, 288)
+    dlim, drd, dsym, dover = canon_params(dist_lengths, 32)
+    min_len = torch.where(lit_lengths > 0, lit_lengths, 99).amin(1)
+    symp1 = torch.where((lsym >= 0) & (lsym <= 287), lsym + 1, 0)
+    dsymp1 = torch.where((dsym >= 0) & (dsym <= 29), dsym + 1, 0)
+    tab = torch.cat([
+        llim, lrd, dlim, drd,
+        _pack_fields(symp1 & 0xFF, 4, 8), _pack_fields(symp1 >> 8, 32, 1),
+        _pack_fields(dsymp1, 4, 8), start[:, None], min_len[:, None],
+        torch.zeros(B, 5, dtype=torch.int64, device=dev),  # no output before
+    ], 1)
+    assert tab.shape[1] == TAB_W
+    return tab, min_len, ~lover & ~dover
+
+
+def _static(name: str, dev) -> torch.Tensor:
+    return torch.as_tensor(getattr(T, name), dtype=torch.int64, device=dev)
+
+
+def dyn_header_params_batch(rows: torch.Tensor, ends: torch.Tensor):
+    """Parse the first block header of each lane of rows uint8[B, M] with
+    end bits ends int32[B].
+
+    Returns the dict of ``tpu_deflate.ops.decode.dyn_header_params_batch``
+    as int32: ok (a static block, or a dynamic one with valid trees, or an
+    empty lane), start (bit of the first symbol), min_len, tab[B, TAB_W];
+    and, for the decoder, btype and status: -1 where the lane's symbols
+    are to be decoded from start, else the error code with which the JAX
+    package's block loop ends the lane in its header (no tokens, end bit
+    stop)."""
+    B, M = rows.shape
+    dev = rows.device
+    i64 = torch.int64
+    ext = torch.nn.functional.pad(rows.to(i64), (0, CL_WIN // 8 + 64))
+    end = ends.to(i64)
+    hdr = bit_windows(ext, torch.zeros(B, dtype=i64, device=dev), 17 + 3 * 19)
+    btype = (hdr[:, 1] & 3)
+    hlit = (hdr[:, 3] & 31) + 257
+    hdist = (hdr[:, 8] & 31) + 1
+    hclen = (hdr[:, 13] & 15) + 4
+    j = torch.arange(19, device=dev)
+    raw = torch.where(j < hclen[:, None], hdr[:, 17 + 3 * j] & 7, 0)
+    order = torch.as_tensor(T.CODE_LENGTH_ORDER, dtype=i64, device=dev)
+    cl_lengths = torch.zeros(B, 19, dtype=i64, device=dev).scatter(
+        1, order.expand(B, 19), raw)
+    clim, crd, csym, cover = canon_params(cl_lengths, 19)
+    pos0 = 17 + 3 * hclen
+    lengths, end_next, cl_ok = decode_cl_lengths(
+        ext, pos0, hlit + hdist, clim, crd, csym)
+    sidx = torch.arange(MAX_SYMS, device=dev)
+    dyn_lit = torch.where(sidx < hlit[:, None], lengths, 0)[:, :288]
+    d = torch.arange(32, device=dev)
+    dl = torch.gather(lengths, 1, (hlit[:, None] + d).clamp(0, MAX_SYMS - 1))
+    dyn_dist = torch.where(d < hdist[:, None], dl, 0)
+
+    is_static = (btype == 1)[:, None]
+    lit_lengths = torch.where(is_static, _static("STATIC_LITLEN_LENGTHS", dev),
+                              dyn_lit)
+    dist_lengths = torch.where(is_static, _static("STATIC_DIST_LENGTHS", dev),
+                               dyn_dist)
+    dyn_start = pos0 + end_next
+    start = torch.where(btype == 1, 3, dyn_start)
+    empty = end <= 3
+    start = torch.where(empty, 0, start)
+    tab, min_len, trees_ok = pack_block_tab(lit_lengths, dist_lengths, start)
+    ok = empty | (btype == 1) | ((btype == 2) & cl_ok & ~cover & trees_ok)
+    min_len = torch.where(empty, 99, min_len)
+
+    # where the block loop stops: the header at bit 0 runs if 0 < end; a
+    # static block's symbols need 3 < end; a dynamic header fails on an
+    # oversubscribed code-length code, or, with pos0 < end, on lengths
+    # that do not decode or oversubscribed trees.  Otherwise the first
+    # pass runs from start.
+    nbits = 8 * M
+    fits0 = (pos0 < end) & (pos0 <= nbits)
+    status = torch.where(
+        btype == 1, torch.where((3 < end) & (3 <= nbits), -1, ERR_INPUT),
+        torch.where(cover, ERR_BAD_CODE,
+                    torch.where(~fits0, ERR_INPUT,
+                                torch.where(cl_ok & trees_ok, -1,
+                                            ERR_BAD_CODE))))
+    stop = torch.where(btype == 1, 3,
+                       torch.where(cover | ~fits0, pos0, dyn_start))
+    status = torch.where(end > 0, status, ERR_OK)
+    stop = torch.where(end > 0, stop, 0)
+    i32 = torch.int32
+    return dict(
+        ok=ok.to(i32), start=start.to(i32), min_len=min_len.to(i32),
+        tab=tab.to(i32), btype=btype.to(i32), status=status.to(i32),
+        stop=stop.to(i32),
     )
+
+
+def dyn_lanes(prep: dict):
+    """From a header parse: (coded bool[B] = the first block has Huffman
+    codes, and the starts and status int32[B] that ``tokenize_dyn_batch``
+    takes; a lane that is not coded gets status ERR_OK, no work)."""
+    coded = (prep["btype"] == 1) | (prep["btype"] == 2)
+    starts = torch.where(prep["status"] < 0, prep["start"], prep["stop"])
+    return coded, starts, torch.where(coded, prep["status"], ERR_OK)
+
+
+def tokenize_rows_batch(rows: torch.Tensor, ends: torch.Tensor, tok_cap: int,
+                        pwin: int, static_only: bool = True):
+    """Stage 1 of ``decode_rows_batch``: (tk, ta, tb, ntok, out_total,
+    end_pos, err) of each lane, see ``kernels.tokenize``.
+
+    ``static_only`` decodes stored and static blocks and reports a
+    dynamic-tree block as ERR_DYNAMIC.  Otherwise a lane whose first block
+    has Huffman codes (static or dynamic) is decoded by
+    ``tokenize_dyn_batch`` from its parsed header, and a lane whose first
+    block is stored or of type 3 by ``tokenize_static_batch``; both run
+    over the whole batch, each with the other's lanes empty."""
+    ends = ends.to(torch.int32)
+    if static_only:
+        return tokenize_static_batch(rows, ends, tok_cap, pwin)
+    prep = dyn_header_params_batch(rows, ends)
+    coded, starts, status = dyn_lanes(prep)
+    dyn = tokenize_dyn_batch(rows, ends, prep["tab"], starts, status,
+                             tok_cap, pwin)
+    st = tokenize_static_batch(rows, torch.where(coded, 0, ends), tok_cap, pwin)
+    return tuple(torch.where(coded[:, None] if d.dim() == 2 else coded, d, s)
+                 for d, s in zip(dyn, st))
+
+
+def decode_rows_batch(rows: torch.Tensor, ends: torch.Tensor, out_cap: int,
+                      tok_cap: int, static_only: bool = True):
+    """Chunk-parallel decode of per-lane rows uint8[B, M], each one
+    byte-aligned run of blocks ending at bit ends[b].  Lanes stop at their
+    first end-of-block.  Returns (out uint8[B, out_cap], totals int32[B],
+    errs int32[B]); ``static_only`` as in ``tokenize_rows_batch``."""
+    tk, ta, tb, tp, _tot, _pos, err = tokenize_rows_batch(
+        rows, ends, tok_cap, chunk_pwin(out_cap), static_only)
     out, total = expand_batch(rows, tk, ta, tb, tp, out_cap)
     return out, total, err

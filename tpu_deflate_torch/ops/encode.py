@@ -1,15 +1,19 @@
-"""Block encoder for chunk lanes, static Huffman trees, window <= 256.
+"""Block encoder for chunk lanes, static or dynamic Huffman trees, window
+<= 256.
 
 Four stages per lane, all lanes at once:
 
   1+2. match search and extension — the ``match2`` kernel;
   3.   greedy parse: the token starts are the positions reachable from 0
        under next[i] = i + max(length[i], 1) (``ops.decode.chase_reach``);
-  4.   emissions: each token's static code plus extra bits as one value
-       and bit width, bit offsets by prefix sum, then the bytes by a
-       scatter-add of 16-bit channels (the ``monotone`` kernel).
+  4.   emissions: each token's code plus extra bits as values and bit
+       widths, bit offsets by prefix sum, then the bytes by a scatter-add
+       of 16-bit channels (the ``monotone`` kernel).  With dynamic_encode
+       each lane also builds length-limited trees from its symbol counts
+       and keeps them where header and tokens take fewer bits than the
+       static trees.
 
-Each lane is one static block; a non-final lane ends byte-aligned with an
+Each lane is one block; a non-final lane ends byte-aligned with an
 empty stored block, so lanes concatenate bytewise into one stream, and a
 lane whose stored encoding is shorter is emitted stored instead.  Output
 is byte-identical to ``tpu_deflate.ops.encode.encode_blocks_batch``.
@@ -46,11 +50,259 @@ def _greedy_parse(length: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return reach & (torch.arange(N, device=length.device) < n[:, None])
 
 
-def _encode_emissions(data, n, final, dist, length):
-    """Stages 3-4 up to the bit offsets: (vals, nbs, offs int64[B, N + 2],
-    total_bits int64[B], ntok int32[B]).  Entry 0 is the 3-bit block
-    header, entries 1..N the token at each position (width 0 where none
-    starts), entry N + 1 the end-of-block code."""
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """1 << e, elementwise (e >= 0)."""
+    return torch.bitwise_left_shift(torch.ones_like(e), e)
+
+
+def _kraft(lengths: torch.Tensor, max_bits: int) -> torch.Tensor:
+    """Kraft sum of each row in units of 2^-max_bits (0 = unused symbol)."""
+    used = lengths > 0
+    return torch.where(used, _pow2((max_bits - lengths).clamp_min(0)), 0).sum(-1)
+
+
+def _kraft_complete(lengths: torch.Tensor, max_bits: int) -> torch.Tensor:
+    """bool[...]: the code of each row is exactly complete (zlib rejects
+    incomplete literal and code-length trees)."""
+    return _kraft(lengths, max_bits) == (1 << max_bits)
+
+
+def _bit_length(q: torch.Tensor) -> torch.Tensor:
+    """floor(log2 q) + 1 for 1 <= q < 2^40, by compares against powers of
+    two (torch has no count-leading-zeros)."""
+    p = torch.bitwise_left_shift(
+        torch.ones(40, dtype=torch.int64, device=q.device),
+        torch.arange(40, device=q.device),
+    )
+    return (q[..., None] >= p).sum(-1)
+
+
+def _assign_code_lengths(freq: torch.Tensor, max_bits: int) -> torch.Tensor:
+    """Length-limited prefix-code lengths int64[B, S] of frequencies
+    int64[B, S], row by row.  The JAX package's rule, step for step:
+    lengths ceil(log2(total / f)) clipped to [1, max_bits]; 48 rounds that
+    lengthen the rarest shortenable symbol while the code is
+    oversubscribed; two sweeps over the levels max_bits .. 2 that shorten
+    the most frequent symbols of a level (ties by index, a stable sort)
+    while the budget allows; a lone symbol gets length 1."""
+    f = freq.to(torch.int64)
+    B, S = f.shape
+    total = f.sum(1, keepdim=True).clamp_min(1)
+    active = f > 0
+    nactive = active.sum(1, keepdim=True)
+    fm = f.clamp_min(1)
+    q = total // fm
+    blen = _bit_length(q.clamp_min(1))
+    is_pow2 = (q & (q - 1)) == 0
+    ceil_log = torch.where(is_pow2, blen - 1, blen)
+    bump = is_pow2 & (total % fm != 0)
+    lengths = (ceil_log + bump.to(torch.int64)).clamp(1, max_bits)
+    lengths = torch.where(active, lengths, 0)
+
+    unit = 1 << max_bits
+    big = 1 << 30
+    for _ in range(48):  # overflow repair; rounds past the last fix are no-ops
+        over = (_kraft(lengths, max_bits) > unit).to(torch.int64)
+        if not bool(over.any()):
+            break
+        can = (lengths > 0) & (lengths < max_bits)
+        pick = torch.argmin(torch.where(can, f, big), dim=1)  # first minimum
+        lengths = lengths.scatter_add(1, pick[:, None], over[:, None])
+
+    for _ in range(2):  # deficit tightening, coarse to fine
+        for lvl in range(max_bits, 1, -1):
+            c = 1 << (max_bits - lvl)
+            k = torch.div(unit - _kraft(lengths, max_bits), c,
+                          rounding_mode="floor")
+            at_l = lengths == lvl
+            key = torch.where(at_l, -f, big)
+            order = torch.argsort(key, dim=1, stable=True)
+            rank = torch.argsort(order, dim=1, stable=True)
+            promote = at_l & (rank < k[:, None])
+            lengths = lengths - promote.to(torch.int64)
+    return torch.where((nactive == 1) & active, 1, lengths)
+
+
+def _canonical_codes(lengths: torch.Tensor) -> torch.Tensor:
+    """RFC 1951 canonical codes int64[B, S] (MSB-first) of lengths
+    int64[B, S]; 0 for unused symbols."""
+    B, S = lengths.shape
+    dev = lengths.device
+    valid = lengths > 0
+    sym = torch.arange(S, device=dev)
+    order = torch.argsort(torch.where(valid, lengths, 99) * S + sym, dim=1)
+    len_sorted = torch.gather(lengths, 1, order).clamp(0, 16)
+    bl_count = torch.zeros(B, 17, dtype=torch.int64, device=dev).scatter_add(
+        1, lengths.clamp(0, 16), valid.to(torch.int64)
+    )
+    next_code = torch.zeros(B, 17, dtype=torch.int64, device=dev)
+    for L in range(1, 17):
+        next_code[:, L] = (next_code[:, L - 1] + bl_count[:, L - 1]) << 1
+    cum_before = torch.cumsum(bl_count, 1) - bl_count
+    rank = sym - torch.gather(cum_before, 1, len_sorted)
+    code_sorted = torch.gather(next_code, 1, len_sorted) + rank
+    codes = torch.zeros_like(lengths).scatter(1, order, code_sorted)
+    return torch.where(valid, codes, 0)
+
+
+def _revbits(x: torch.Tensor, nbits: torch.Tensor) -> torch.Tensor:
+    """The low nbits (1..16) of each x, bit-reversed."""
+    x = x & 0xFFFF
+    x = ((x & 0x5555) << 1) | ((x >> 1) & 0x5555)
+    x = ((x & 0x3333) << 2) | ((x >> 2) & 0x3333)
+    x = ((x & 0x0F0F) << 4) | ((x >> 4) & 0x0F0F)
+    x = ((x & 0x00FF) << 8) | ((x >> 8) & 0x00FF)
+    return (x >> (16 - nbits)) & (_pow2(nbits) - 1)
+
+
+def _rle_code_lengths(L: torch.Tensor, ops_cap: int = 320):
+    """RFC 1951 3.2.7 run-length encoding of code lengths int64[B, S]:
+    (sym, extra, ebits int64[B, ops_cap], nops int64[B]) with symbols 0-15,
+    16 (repeat the previous length 3-6 times), 17 (3-10 zeros) and 18
+    (11-138 zeros).  Slots past nops are 0."""
+    B, S = L.shape
+    dev = L.device
+    i = torch.arange(S, device=dev)
+    prev = torch.cat([torch.full((B, 1), -1, dtype=L.dtype, device=dev),
+                      L[:, :-1]], 1)
+    new_run = (i == 0) | (L != prev)
+    rid = torch.cumsum(new_run.to(torch.int64), 1) - 1
+    nruns = rid[:, -1:] + 1
+    run_val = torch.zeros_like(L).scatter_reduce(
+        1, rid, torch.where(new_run, L, 0), "amax")
+    run_start = torch.full_like(L, S).scatter_reduce(
+        1, rid, torch.where(new_run, i, S), "amin")
+    nxt = torch.gather(run_start, 1, (i + 1).clamp(max=S - 1).expand(B, S))
+    next_start = torch.where(i + 1 < nruns, nxt, S)
+    ln = torch.where(i < nruns, next_start - run_start, 0).clamp_min(0)
+
+    v = run_val
+    k18, r1 = ln // 138, ln % 138
+    count_zero = k18 + (r1 >= 3).to(torch.int64) + torch.where(r1 < 3, r1, 0)
+    rem = (ln - 1).clamp_min(0)
+    k16f, r2 = rem // 6, rem % 6
+    count_nz = 1 + k16f + (r2 >= 3).to(torch.int64) + torch.where(r2 < 3, r2, 0)
+    counts = torch.where(i < nruns, torch.where(v == 0, count_zero, count_nz), 0)
+    op_off = torch.cumsum(counts, 1) - counts
+    nops = counts.sum(1)
+
+    o = torch.arange(ops_cap, device=dev).expand(B, ops_cap).contiguous()
+    r = (torch.searchsorted(op_off, o, right=True) - 1).clamp(0, S - 1)
+    j = o - torch.gather(op_off, 1, r)
+    rv, rk18, rr1, rk16f, rr2 = (torch.gather(x, 1, r)
+                                 for x in (v, k18, r1, k16f, r2))
+
+    # zero run: k18 ops of 18, then one 18 or 17 for the tail of >= 3
+    full18 = j < rk18
+    tail18 = (j == rk18) & (rr1 >= 11)
+    tail17 = (j == rk18) & (rr1 >= 3) & ~tail18
+    z_sym = torch.where(full18 | tail18, 18, torch.where(tail17, 17, 0))
+    z_ext = torch.where(full18, 138 - 11, torch.where(
+        tail18, rr1 - 11, torch.where(tail17, rr1 - 3, 0)))
+    z_eb = torch.where(full18 | tail18, 7, torch.where(tail17, 3, 0))
+    # nonzero run: the length itself, then 16s of 6, then one 16 of 3..5
+    full16 = (j >= 1) & (j <= rk16f)
+    part16 = (j == rk16f + 1) & (rr2 >= 3)
+    n_sym = torch.where(full16 | part16, 16, rv)
+    n_ext = torch.where(full16, 3, torch.where(part16, rr2 - 3, 0))
+    n_eb = torch.where(full16 | part16, 2, 0)
+
+    live = o < nops[:, None]
+    zero_run = rv == 0
+    sym = torch.where(live, torch.where(zero_run, z_sym, n_sym), 0)
+    extra = torch.where(live, torch.where(zero_run, z_ext, n_ext), 0)
+    ebits = torch.where(live, torch.where(zero_run, z_eb, n_eb), 0)
+    return sym, extra, ebits, nops
+
+
+def _dynamic_trees(start, is_match, litlen_sym, dsym, lebits, debits, dev):
+    """Per-lane dynamic trees and header, and the static-or-dynamic choice
+    by exact bit count.  Returns (use_dyn bool[B], lit_code, lit_len
+    int64[B, 288], dist_code, dist_len int64[B, 32], hdr_vals, hdr_nbs
+    int64[B, 340]); the tables and header are the static ones, and the
+    header widths 0, where a lane keeps static trees."""
+    B = start.shape[0]
+    i64 = torch.int64
+    s_lit_code = _table("STATIC_LITLEN_CODES_REV", dev).expand(B, 288)
+    s_lit_len = _table("STATIC_LITLEN_LENGTHS", dev).expand(B, 288)
+    s_dist_code = _table("STATIC_DIST_CODES_REV", dev).expand(B, 32)
+
+    lit_freq = torch.zeros(B, 287, dtype=i64, device=dev).scatter_add(
+        1, torch.where(start, litlen_sym, 286), start.to(i64))[:, :286]
+    lit_freq[:, 256] += 1  # end-of-block
+    dist_freq = torch.zeros(B, 31, dtype=i64, device=dev).scatter_add(
+        1, torch.where(is_match, dsym, 30), is_match.to(i64))[:, :30]
+    # RFC 1951 wants at least one distance code even when none is used
+    no_dist = dist_freq.sum(1) == 0
+    dist_freq[:, 0] = torch.where(no_dist, 1, dist_freq[:, 0])
+    # both trees in one batch: the zero counts that pad the distance rows
+    # are unused symbols, which change no step of the rule
+    both = _assign_code_lengths(torch.cat(
+        [lit_freq, torch.nn.functional.pad(dist_freq, (0, 286 - 30))]), 15)
+    lit_len, dist_len = both[:B], both[B:, :30]
+    lit_code = _revbits(_canonical_codes(lit_len), lit_len.clamp_min(1))
+    dist_code = _revbits(_canonical_codes(dist_len), dist_len.clamp_min(1))
+
+    # header: HLIT = 286, HDIST = 30, HCLEN = 19, the 19 code-length code
+    # lengths, then the 316 lengths run-length encoded
+    rle_sym, rle_extra, rle_ebits, rle_n = _rle_code_lengths(
+        torch.cat([lit_len, dist_len], 1))
+    rle_live = torch.arange(rle_sym.shape[1], device=dev) < rle_n[:, None]
+    cl_freq = torch.zeros(B, 20, dtype=i64, device=dev).scatter_add(
+        1, torch.where(rle_live, rle_sym, 19), torch.ones_like(rle_sym))[:, :19]
+    cl_len = _assign_code_lengths(cl_freq, 7)
+    cl_code = _revbits(_canonical_codes(cl_len), cl_len.clamp_min(1))
+    op_len = torch.gather(cl_len, 1, rle_sym)
+    op_nbs = torch.where(rle_live, op_len + rle_ebits, 0)
+    op_vals = torch.where(
+        rle_live, torch.gather(cl_code, 1, rle_sym) | (rle_extra << op_len), 0)
+    order = torch.as_tensor(T.CODE_LENGTH_ORDER, dtype=i64, device=dev)
+    e0 = (286 - 257) | ((30 - 1) << 5) | ((19 - 4) << 10)
+    hdr_vals = torch.cat([torch.full((B, 1), e0, dtype=i64, device=dev),
+                          cl_len[:, order], op_vals], 1)
+    hdr_nbs = torch.cat([torch.full((B, 1), 14, dtype=i64, device=dev),
+                         torch.full((B, 19), 3, dtype=i64, device=dev),
+                         op_nbs], 1)
+
+    # exact bit counts of the tokens and end-of-block under either tree
+    s_bits = torch.where(start, torch.gather(s_lit_len, 1, litlen_sym)
+                         + torch.where(is_match, lebits + 5 + debits, 0), 0)
+    d_bits = torch.where(start, torch.gather(lit_len, 1, litlen_sym)
+                         + torch.where(is_match, lebits + debits + torch.gather(
+                             dist_len, 1, dsym), 0), 0)
+    tok_bits_static = s_bits.sum(1) + 7
+    tok_bits_dyn = d_bits.sum(1) + lit_len[:, 256]
+    dist_active = (dist_freq > 0).sum(1)
+    trees_ok = (_kraft_complete(lit_len, 15) & _kraft_complete(cl_len, 7)
+                & (_kraft_complete(dist_len, 15) | (dist_active <= 1)))
+    allow = ((cl_freq > 0).sum(1) >= 2) & ((lit_freq > 0).sum(1) >= 2) & trees_ok
+    use_dyn = allow & (hdr_nbs.sum(1) + tok_bits_dyn < tok_bits_static)
+
+    u = use_dyn[:, None]
+    pad2 = (0, 2)
+    F = torch.nn.functional
+    return (
+        use_dyn,
+        torch.where(u, F.pad(lit_code, pad2), s_lit_code),
+        torch.where(u, F.pad(lit_len, pad2), s_lit_len),
+        torch.where(u, F.pad(dist_code, pad2), s_dist_code),
+        torch.where(u, F.pad(dist_len, pad2), 5),
+        hdr_vals,
+        torch.where(u, hdr_nbs, 0),
+    )
+
+
+def _encode_emissions(data, n, final, dist, length, dynamic: bool = False):
+    """Stages 3-4 up to the bit offsets: (vals, nbs, offs int64[B, K],
+    total_bits int64[B], ntok int32[B]).
+
+    Static trees: entry 0 is the 3-bit block header, entries 1..N the
+    token at each position (width 0 where none starts), entry N + 1 the
+    end-of-block code.  ``dynamic``: each lane takes dynamic trees where
+    they give fewer bits; the dynamic header's 340 entries follow the
+    block header, and each position has two entries (literal/length code
+    with its extras, then distance code with its extras), since dynamic
+    codes reach 15 bits."""
     B, N = data.shape
     dev = data.device
     start = _greedy_parse(length, n)
@@ -60,43 +312,67 @@ def _encode_emissions(data, n, final, dist, length):
 
     lsym = _table("LEN_TO_SYM", dev)[ln]
     litlen_sym = torch.where(is_lit, data.to(torch.int64), 257 + lsym)
-    code = _table("STATIC_LITLEN_CODES_REV", dev)[litlen_sym]
-    clen = _table("STATIC_LITLEN_LENGTHS", dev)[litlen_sym]
     lextra = torch.where(is_match, _table("LEN_TO_EXTRA", dev)[ln], 0)
     lebits = torch.where(is_match, _table("LENGTH_EXTRA_BITS", dev)[lsym], 0)
-    e0_val = code | (lextra << clen)
-    e0_nb = torch.where(start, clen + lebits, 0)
-
     d = dist.to(torch.int64).clamp(0, 32768)
     dsym = _table("DIST_TO_SYM", dev)[d]
-    dcode = torch.where(is_match, _table("STATIC_DIST_CODES_REV", dev)[dsym], 0)
     dextra = torch.where(is_match, _table("DIST_TO_EXTRA", dev)[d], 0)
     debits = torch.where(is_match, _table("DIST_EXTRA_BITS", dev)[dsym], 0)
-    e12_val = dcode | (dextra << 5)  # 5-bit distance code, then its extras
-    e12_nb = torch.where(is_match, 5 + debits, 0)
 
-    # one value per position: literal/length code and extras (<= 13 bits),
-    # then distance code and extras (<= 18 bits)
-    vals = e0_val | (e12_val << e0_nb)
-    nbs = e0_nb + e12_nb
-    hdr = final.to(torch.int64) | (1 << 1)  # BFINAL, BTYPE=01 (static)
     zero = torch.zeros(B, 1, dtype=torch.int64, device=dev)
-    vals = torch.cat([hdr[:, None], vals, zero], dim=1)  # EOB code is 0
-    nbs = torch.cat([zero + 3, nbs, zero + 7], dim=1)
+    if dynamic:
+        (use_dyn, lit_code, lit_len, dist_code, dist_len, hdr_vals,
+         hdr_nbs) = _dynamic_trees(start, is_match, litlen_sym, dsym,
+                                   lebits, debits, dev)
+        btype = torch.where(use_dyn, 2, 1)
+        eob_val = torch.where(use_dyn, lit_code[:, 256], 0)[:, None]
+        eob_nb = torch.where(use_dyn, lit_len[:, 256], 7)[:, None]
+        dlen = torch.where(is_match, torch.gather(dist_len, 1, dsym), 0)
+        dcode = torch.where(is_match, torch.gather(dist_code, 1, dsym), 0)
+    else:
+        lit_code = _table("STATIC_LITLEN_CODES_REV", dev).expand(B, 288)
+        lit_len = _table("STATIC_LITLEN_LENGTHS", dev).expand(B, 288)
+        hdr_vals = hdr_nbs = zero[:, :0]
+        btype = 1
+        eob_val, eob_nb = zero, zero + 7  # the static end-of-block code is 0
+        dlen = torch.where(is_match, 5, 0)
+        dcode = torch.where(
+            is_match, _table("STATIC_DIST_CODES_REV", dev)[dsym], 0)
+
+    clen = torch.gather(lit_len, 1, litlen_sym)
+    e0_val = torch.gather(lit_code, 1, litlen_sym) | (lextra << clen)
+    e0_nb = torch.where(start, clen + lebits, 0)
+    e12_val = dcode | (dextra << dlen)  # distance code, then its extras
+    e12_nb = dlen + debits
+    if dynamic:
+        vals = torch.stack([e0_val, e12_val], 2).reshape(B, 2 * N)
+        nbs = torch.stack([e0_nb, e12_nb], 2).reshape(B, 2 * N)
+    else:
+        # static codes: <= 13 + 18 bits, one value per position
+        vals = e0_val | (e12_val << e0_nb)
+        nbs = e0_nb + e12_nb
+    hdr = final.to(torch.int64) | (btype << 1)  # BFINAL, BTYPE
+    vals = torch.cat([hdr[:, None] + zero, hdr_vals, vals, eob_val], dim=1)
+    nbs = torch.cat([zero + 3, hdr_nbs, nbs, eob_nb], dim=1)
     csum = torch.cumsum(nbs, dim=1)
     offs = csum - nbs
     ntok = start.sum(1).to(torch.int32)
     return vals, nbs, offs, csum[:, -1], ntok
 
 
-def _bitpack_entries(vals, nbs, offs, max_match: int):
+def _emission_bits(config: DeflateConfig) -> int:
+    """Widest emission value of the config, in bits."""
+    if config.dynamic_encode:
+        return 28  # 15-bit distance code + 13 extra bits
+    return 20 if config.max_match <= 18 else 31
+
+
+def _bitpack_entries(vals, nbs, offs, emax: int):
     """Scatter-add entries of the bit-pack: (byte index int32[B, K],
     16-bit channels int32[B, C, K]).
 
     A value of emax bits shifted by its bit offset (<= 7) spans
-    ceil((emax + 7) / 16) channels, added at bytes j, j+2, j+4.  With
-    window <= 256 and max_match <= 18 every value fits 20 bits: 2 channels."""
-    emax = 20 if max_match <= 18 else 31
+    ceil((emax + 7) / 16) channels, added at bytes j, j+2, j+4."""
     s = offs & 7
     v = torch.where(nbs > 0, vals, 0) << s  # < 2^38
     ch = torch.stack(
@@ -156,10 +432,11 @@ def encode_blocks_batch(data: torch.Tensor, lengths: torch.Tensor,
                         finals: torch.Tensor, config: DeflateConfig = DeflateConfig()):
     """Encode lanes data uint8[B, N] of lengths int32[B]; finals bool[B]
     sets BFINAL.  Returns (out uint8[B, M], out_lens int32[B], ntok
-    int32[B]) with M = max_output_bytes(N)."""
-    if config.window > MAX_WINDOW or config.dynamic_encode or config.lazy:
+    int32[B]) with M = max_output_bytes(N).  ``config.dynamic_encode``
+    gives each lane dynamic trees where they are smaller."""
+    if config.window > MAX_WINDOW or config.lazy:
         raise NotImplementedError(
-            "the port encodes static trees, window <= 256, greedy parse only"
+            "the port encodes window <= 256 with the greedy parse only"
         )
     B, N = data.shape
     M = max_output_bytes(N)
@@ -168,10 +445,10 @@ def encode_blocks_batch(data: torch.Tensor, lengths: torch.Tensor,
         data, lengths, config.window, config.max_match
     )
     vals, nbs, offs, total_bits, ntok = _encode_emissions(
-        data, lengths, finals, dist, length
+        data, lengths, finals, dist, length, config.dynamic_encode
     )
 
-    idx, ch = _bitpack_entries(vals, nbs, offs, config.max_match)
+    idx, ch = _bitpack_entries(vals, nbs, offs, _emission_bits(config))
     packed = mono_scatter_add(idx, ch, M + 8)
     # emissions are bit-disjoint, so every byte sum below is carry-free
     out = torch.zeros(B, M, dtype=torch.int32, device=data.device)

@@ -17,6 +17,13 @@ from tpu_deflate_torch.spec.huffman import (
     reverse_bits,
 )
 
+# RFC 1951 3.2.7: order of the code-length code lengths in a dynamic
+# block header.
+CODE_LENGTH_ORDER = np.array(
+    [16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15],
+    dtype=np.int32,
+)
+
 # Length codes 257..285 (index 0..28); code 285 means exactly 258.
 LENGTH_EXTRA_BITS = np.array(
     [0] * 8 + [1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5] + [0],
