@@ -88,3 +88,26 @@ def test_dynamic_block_is_not_ported():
                                 device="cpu")
     assert got == tj.decompress_indexed(raw, index, tj.DeflateConfig(**fields))
     assert got == data
+
+
+@pytest.mark.parametrize("reach_back", [False, True])
+def test_stored_then_dynamic_block_decodes(reach_back):
+    """One chunk of a stored block, then a dynamic-tree block whose matches
+    may reach into the stored bytes: decoded equal to the JAX package."""
+    head = _input(3)[:700]
+    data = _input(2)
+    co = zlib.compressobj(9, zlib.DEFLATED, -15,
+                          **({"zdict": head} if reach_back else {}))
+    n = len(head)
+    body = (bytes([0]) + n.to_bytes(2, "little")
+            + (n ^ 0xFFFF).to_bytes(2, "little") + head
+            + co.compress(data) + co.flush())
+    assert (body[n + 5] >> 1) & 3 == 2  # the second block has dynamic trees
+    raw = b"\x78\x9c" + body + zlib.adler32(head + data).to_bytes(4, "big")
+    assert zlib.decompress(raw) == head + data
+    index = np.array([len(body)])
+    fields = dict(chunk_size=1 << 16)
+    got = td.decompress_indexed(raw, index, td.DeflateConfig(**fields),
+                                device="cpu")
+    assert got == tj.decompress_indexed(raw, index, tj.DeflateConfig(**fields))
+    assert got == head + data

@@ -28,8 +28,17 @@ from tpu_deflate.kernels.tokenize_dyn import tokenize_dyn_batch as j_tok_dyn  # 
 from tpu_deflate.ops import decode as JD  # noqa: E402
 from tpu_deflate.ops import encode as JE  # noqa: E402
 from tpu_deflate_torch.kernels.monotone import mono_compact  # noqa: E402
-from tpu_deflate_torch.kernels.tokenize import ERR_BAD_CODE, ERR_INPUT, ERR_OK  # noqa: E402
-from tpu_deflate_torch.kernels.tokenize_dyn import tokenize_dyn_batch  # noqa: E402
+from tpu_deflate_torch.kernels.tokenize import (  # noqa: E402
+    ERR_BAD_CODE,
+    ERR_DIST,
+    ERR_INPUT,
+    ERR_OK,
+    ERR_OVERFLOW,
+)
+from tpu_deflate_torch.kernels.tokenize_dyn import (  # noqa: E402
+    TAB_OUTBASE,
+    tokenize_dyn_batch,
+)
 from tpu_deflate_torch.ops import decode as D  # noqa: E402
 from tpu_deflate_torch.ops import encode as E  # noqa: E402
 from tpu_deflate_torch.spec import tables as T  # noqa: E402
@@ -193,6 +202,20 @@ def _dyn_header(hlit, hdist, cl_lengths, tail_bits, tail_len=400):
     return _bits_to_bytes(f)
 
 
+def _stored(payload):
+    """A non-final stored block."""
+    n = len(payload)
+    return bytes([0]) + n.to_bytes(2, "little") + (n ^ 0xFFFF).to_bytes(
+        2, "little") + payload
+
+
+def _dict_raw(payload, zdict):
+    """A raw zlib -9 stream of payload whose matches may reach into zdict,
+    the output before it."""
+    co = zlib.compressobj(9, zlib.DEFLATED, -15, zdict=zdict)
+    return co.compress(payload) + co.flush()
+
+
 def _decode_lanes():
     """(name, stream, end bit) per lane."""
     payloads, rows, sizes = _container()
@@ -218,6 +241,20 @@ def _decode_lanes():
         ("truncated_header", zl9, 8 * 6),
         ("empty", b"", 0),
         ("method3", b"\x07\x00", None),
+        # a dynamic block after stored blocks: the static kernel reads the
+        # stored ones, the dynamic kernel goes on from its tokens
+        ("stored_dyn", _stored(b"hello") + zl9, None),
+        ("stored2_dyn", _stored(b"ab") + _stored(b"cd") + zl9, None),
+        ("stored_dict", _stored(text[:300]) + _dict_raw(
+            text[300:2300], text[:300]), None),
+        ("stored_far", _stored(text[200:300]) + _dict_raw(
+            text[300:2300], text[:300]), None),
+        ("stored_cl_oversub", _stored(b"x") + _dyn_header(257, 1, [1] * 19, 1),
+         None),
+        ("stored_truncated", _stored(b"hello") + zl9, 8 * (10 + 6)),
+        ("stored_overflow", _stored(b"q") + _zlib_raw(bytes(
+            np.random.default_rng(5).integers(65, 123, 3200, np.uint8)), 9),
+         None),
     ]
     return [(name, s, 8 * len(s) if end is None else end)
             for name, s, end in lanes]
@@ -243,6 +280,36 @@ def test_dyn_header_params_batch_equal():
     ok = dict(zip([name for name, _, _ in lanes], got["ok"].tolist()))
     assert ok["container0"] == ok["zlib9"] == ok["fixed"] == 1
     assert ok["cl_oversub"] == ok["cl_bad16"] == ok["lit_oversub"] == 0
+
+
+def test_dyn_header_params_at_base_equal():
+    """A header after stored blocks starts on a byte, k: parsed at bit 8k,
+    it gives the JAX package's parse of the row from byte k on, with its
+    bits moved by 8k and the output before it in the table."""
+    lanes = [ln for ln in _decode_lanes() if ln[0].startswith("stored")]
+    rows, ends = _rows(lanes)
+    k = np.array([len(_stored(b"hello")), 2 * len(_stored(b"ab")),
+                  len(_stored(b"x" * 300)), len(_stored(b"x" * 100)),
+                  len(_stored(b"x")), len(_stored(b"hello")),
+                  len(_stored(b"q"))])
+    assert [name for name, _, _ in lanes] == [
+        "stored_dyn", "stored2_dyn", "stored_dict", "stored_far",
+        "stored_cl_oversub", "stored_truncated", "stored_overflow"]
+    out_base = np.arange(len(lanes)) * 11
+    got = D.dyn_header_params_batch(t(rows), t(ends), t(8 * k), t(out_base))
+    shifted = np.zeros_like(rows)
+    for i in range(len(lanes)):
+        shifted[i, : rows.shape[1] - k[i]] = rows[i, k[i]:]
+    want = JD.dyn_header_params_batch(jnp.asarray(shifted),
+                                      jnp.asarray(ends - 8 * k))
+    tab = n(want["tab"]).copy()
+    tab[:, 153] += 8 * k  # the first symbol's bit
+    tab[:, TAB_OUTBASE] = out_base
+    np.testing.assert_array_equal(got["tab"].numpy(), tab)
+    np.testing.assert_array_equal(got["start"].numpy(), n(want["start"]) + 8 * k)
+    for key in ("ok", "min_len"):
+        np.testing.assert_array_equal(got[key].numpy(), n(want[key]))
+    assert (got["btype"] == 2).all()
 
 
 def _cl_inputs(rows):
@@ -351,7 +418,8 @@ def test_tokenize_dyn_plain_equals_pallas_interpret():
         pw=JD._fused_pw(CH), interpret=True))
     got = [x.numpy() for x in tokenize_dyn_batch(
         t(rows), t(ends), t(n(prep["tab"])), t(n(prep["start"])),
-        torch.full((4,), -1, dtype=torch.int32), CH + 16, D.chunk_pwin(CH))]
+        torch.full((4,), -1, dtype=torch.int32),
+        torch.zeros(4, dtype=torch.int32), CH + 16, D.chunk_pwin(CH))]
     tk, ta, tb, tp, gtot, pos, gerr = got
     for i in np.nonzero(gate)[0]:
         k = int(ntok[i])
@@ -360,6 +428,39 @@ def test_tokenize_dyn_plain_equals_pallas_interpret():
         np.testing.assert_array_equal(ta[i, :k], (tok[i, :k] >> 17) & 0x1FF)
         np.testing.assert_array_equal(tb[i, :k], tok[i, :k] & 0x1FFFF)
         assert not tk[i, k:].any() and not ta[i, k:].any()
+
+
+@pytest.mark.parametrize("out_base,tok0", [(0, 0), (100, 1), (300, 7)])
+def test_tokenize_dyn_out_base_equals_pallas_interpret(out_base, tok0):
+    """A block whose matches reach up to 300 bytes before it: the table's
+    out_base (output before the block) decides ERR_DIST as in the JAX
+    kernel.  The port's tokens follow tok0 earlier ones, and its counts
+    include both."""
+    text = (ROOT / "SURVEY.md").read_bytes()
+    lane = _dict_raw(text[300:2300], text[:300])
+    rows = np.frombuffer(lane, np.uint8)[None].copy()
+    ends = np.array([8 * len(lane)], np.int32)
+    prep = JD.dyn_header_params_batch(jnp.asarray(rows), jnp.asarray(ends))
+    assert int(prep["ok"][0]) == 1
+    assert int(prep["min_len"][0]) >= MIN_LIT_LEN
+    tab = n(prep["tab"]).copy()
+    tab[:, TAB_OUTBASE] = out_base
+    tok, ntok, tot, endp, err = (n(x) for x in j_tok_dyn(
+        jnp.asarray(rows), jnp.asarray(ends), jnp.asarray(tab), prep["start"],
+        pw=JD._fused_pw(CH), interpret=True))
+    tk, ta, tb, tp, gtot, pos, gerr = (x.numpy() for x in tokenize_dyn_batch(
+        t(rows), t(ends), t(tab), t(n(prep["start"])),
+        torch.full((1,), -1, dtype=torch.int32),
+        torch.full((1,), tok0, dtype=torch.int32), CH + 16, D.chunk_pwin(CH)))
+    k = int(ntok[0])
+    assert (tp[0], gtot[0], pos[0], gerr[0]) == (
+        tok0 + k, out_base + tot[0], endp[0], err[0])
+    assert (gerr[0] == ERR_DIST) == (out_base < 300)
+    got = tk[0, tok0 : tok0 + k], ta[0, tok0 : tok0 + k], tb[0, tok0 : tok0 + k]
+    want = (tok[0, :k] >> 26) & 3, (tok[0, :k] >> 17) & 0x1FF, tok[0, :k] & 0x1FFFF
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert not tk[0, :tok0].any() and not ta[0, :tok0].any()
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +498,11 @@ def test_decode_rows_dynamic_equals_xla_tokenize(pwin):
     assert codes["cl_oversub"] == codes["cl_bad16"] == ERR_BAD_CODE
     assert codes["lit_oversub"] == ERR_BAD_CODE
     assert codes["truncated"] in (ERR_BAD_CODE, ERR_INPUT)
+    assert codes["stored_dyn"] == codes["stored2_dyn"] == ERR_OK
+    assert codes["stored_dict"] == ERR_OK
+    assert codes["stored_far"] == ERR_DIST
+    assert codes["stored_cl_oversub"] == codes["stored_truncated"] == ERR_BAD_CODE
+    assert codes["stored_overflow"] == ERR_OVERFLOW
 
     if pwin == D.chunk_pwin(CH):
         out, total, err = (x.numpy() for x in D.decode_rows_batch(

@@ -69,13 +69,12 @@ extern "C" int mono_scatter_add_launch(const void* idx, const void* vals,
 //
 // Design: one block per lane.  The block zeroes a C x size accumulator in
 // shared memory, every thread adds its live entries into it with shared
-// integer atomics (exact in any order), and the block writes it out.  The
-// wrapper refuses outputs larger than MONO_COMPACT_SMEM bytes.
+// integer atomics (exact in any order), and the block writes it out.  An
+// accumulator above the default 48 KiB of dynamic shared memory fails the
+// launch, which the entry point reports.
 // ---------------------------------------------------------------------------
 
 namespace {
-
-constexpr int MONO_COMPACT_SMEM = 48 * 1024;
 
 __global__ void mono_compact_kernel(const int* __restrict__ idx,
                                     const int* __restrict__ vals,
@@ -106,7 +105,6 @@ extern "C" int mono_compact_launch(const void* idx, const void* vals,
                                    void* out, int B, int C, int K, int size,
                                    void* stream) {
   const size_t smem = sizeof(int) * (size_t)C * size;
-  if (smem > MONO_COMPACT_SMEM) return (int)cudaErrorInvalidValue;
   mono_compact_kernel<<<B, 512, smem, (cudaStream_t)stream>>>(
       (const int*)idx, (const int*)vals, (int*)out, C, K, size);
   return (int)cudaGetLastError();

@@ -27,7 +27,10 @@
 // tokens do not fit, else ERR_DIST if one reaches before the output
 // start, else ERR_BAD_CODE.  A symbol that starts at or past the lane's
 // end bit is a bad code.  A lane whose status is >= 0 ended in its header:
-// it reports that code, no tokens, and its start as its end bit.
+// it reports that code, no new tokens, and its start as its end bit.  A
+// block that follows earlier blocks of its lane starts its count at tok0
+// tokens and the table's TAB_OUTBASE output bytes: its tokens go to the
+// slots from tok0 on, and its matches may reach into that output.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,7 +43,7 @@ constexpr int TK_LIT = 0, TK_MATCH = 1;
 constexpr int K_LIT = 0, K_EOB = 1, K_MATCH = 2, K_BAD = 3;
 constexpr int TAB_LIT_LIM = 0, TAB_LIT_RD = 16, TAB_DIST_LIM = 32,
               TAB_DIST_RD = 48, TAB_SYM8 = 64, TAB_SYMHI = 136,
-              TAB_DSYM8 = 145, TAB_W = 160;
+              TAB_DSYM8 = 145, TAB_OUTBASE = 155, TAB_W = 160;
 
 // The stream from the walker's bit position on, LSB first; bytes past the
 // row read as zero.  After fill(), at least 57 bits are valid.
@@ -143,8 +146,9 @@ __device__ __forceinline__ Sym dyn_symbol(uint64_t w, const int* lit_lim,
 __global__ void tokenize_dyn_kernel(
     const uint8_t* __restrict__ rows, const int* __restrict__ end_bits,
     const int* __restrict__ tab, const int* __restrict__ starts,
-    const int* __restrict__ status, int* __restrict__ tk, int* __restrict__ ta,
-    int* __restrict__ tb, int* __restrict__ ntok_out,
+    const int* __restrict__ status, const int* __restrict__ tok0,
+    int* __restrict__ tk, int* __restrict__ ta, int* __restrict__ tb,
+    int* __restrict__ ntok_out,
     int* __restrict__ total_out, int* __restrict__ pos_out,
     int* __restrict__ err_out, int M, int tok_cap, int pwin) {
   const int lane = blockIdx.x;
@@ -172,8 +176,8 @@ __global__ void tokenize_dyn_kernel(
 
   const long long start = starts[lane];
   if (status[lane] >= 0) {  // the lane ended in its header
-    ntok_out[lane] = 0;
-    total_out[lane] = 0;
+    ntok_out[lane] = tok0[lane];
+    total_out[lane] = t[TAB_OUTBASE];
     pos_out[lane] = (int)start;
     err_out[lane] = status[lane];
     return;
@@ -194,7 +198,7 @@ __global__ void tokenize_dyn_kernel(
   BitReader rd;
   rd.init(row, M, start);
   long long pos = start;
-  int tp = 0, total = 0, err = ERR_OK;
+  int tp = tok0[lane], total = t[TAB_OUTBASE], err = ERR_OK;
   bool done = false, failed = false, first = true;
 
   // the first pass follows the header at once, as in the JAX block loop
@@ -269,14 +273,16 @@ __global__ void tokenize_dyn_kernel(
 
 extern "C" int tokenize_dyn_launch(const void* rows, const void* end_bits,
                                    const void* tab, const void* starts,
-                                   const void* status, void* tk, void* ta,
-                                   void* tb, void* ntok, void* total,
-                                   void* pos, void* err, int B, int M,
-                                   int tok_cap, int pwin, void* stream) {
+                                   const void* status, const void* tok0,
+                                   void* tk, void* ta, void* tb, void* ntok,
+                                   void* total, void* pos, void* err, int B,
+                                   int M, int tok_cap, int pwin,
+                                   void* stream) {
   // one lane per block: its threads unpack the tables, thread 0 walks
   tokenize_dyn_kernel<<<B, 64, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)rows, (const int*)end_bits, (const int*)tab,
-      (const int*)starts, (const int*)status, (int*)tk, (int*)ta, (int*)tb,
-      (int*)ntok, (int*)total, (int*)pos, (int*)err, M, tok_cap, pwin);
+      (const int*)starts, (const int*)status, (const int*)tok0, (int*)tk,
+      (int*)ta, (int*)tb, (int*)ntok, (int*)total, (int*)pos, (int*)err, M,
+      tok_cap, pwin);
   return (int)cudaGetLastError();
 }

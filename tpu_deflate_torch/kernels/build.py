@@ -38,7 +38,7 @@ SIGNATURES = {
                                _I, _I, _I, _I, _P],
     "expand3_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tokenize_dyn_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _I, _I, _I, _I, _P],
+                            _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -22,8 +22,6 @@ import torch
 
 from tpu_deflate_torch.kernels import build
 
-MONO_COMPACT_SMEM = 48 * 1024  # as csrc/monotone.cu
-
 
 def mono_scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor,
                            size: int) -> torch.Tensor:
@@ -74,8 +72,8 @@ def mono_compact_plain(idx: torch.Tensor, vals: torch.Tensor,
 def mono_compact(idx: torch.Tensor, vals: torch.Tensor,
                  size: int) -> torch.Tensor:
     """idx int32[B, K], vals int32[B, C, K] -> int32[B, C, size], with
-    C * size * 4 <= MONO_COMPACT_SMEM bytes (the kernel's accumulator in
-    shared memory).
+    C * size * 4 bytes at most 48 KiB (the kernel's accumulator in shared
+    memory; a larger one fails its launch).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if idx.device.type == "cpu":
@@ -87,9 +85,6 @@ def mono_compact(idx: torch.Tensor, vals: torch.Tensor,
     if idx.shape != (B, K):
         raise ValueError(f"mono_compact: idx {tuple(idx.shape)} vs "
                          f"vals {tuple(vals.shape)}")
-    if 4 * C * size > MONO_COMPACT_SMEM:
-        raise ValueError(f"mono_compact: output of {C} x {size} exceeds "
-                         f"{MONO_COMPACT_SMEM} bytes of shared memory")
     out = torch.zeros(B, C, size, dtype=torch.int32, device=vals.device)
     if B * K == 0:
         return out

@@ -10,10 +10,14 @@ first L whose limit lim[L] exceeds the 15-bit MSB-first prefix, its rank
 is prefix >> (15 - L) plus rd[L], and the rank names the symbol.
 
 Inputs per lane: rows uint8[B, M], end_bits int32[B], tab int32[B,
-TAB_W], starts int32[B] and status int32[B].  A lane with status < 0 is
-decoded from bit starts[b]; a lane with status >= 0 ended in its header
-and reports err = status, no tokens and end_pos = starts[b].  Outputs are
-those of ``kernels.tokenize.tokenize_static_batch``, the result of
+TAB_W], starts int32[B], status int32[B] and tok0 int32[B].  The block
+may follow earlier blocks of the lane (stored ones): tok0 tokens and
+tab[TAB_OUTBASE] output bytes came before it, its tokens take the slots
+from tok0 on, matches may reach into that output, and ntok and out_total
+count it.  A lane with status < 0 is decoded from bit starts[b]; a lane
+with status >= 0 ended in its header and reports err = status, no new
+tokens and end_pos = starts[b].  Outputs are those of
+``kernels.tokenize.tokenize_static_batch``, the result of
 ``tpu_deflate.ops.decode.tokenize(static_only=False, stop_at_eob=True)``
 on each lane, decoded in passes of ``pwin`` bit positions with the same
 error precedence (ERR_OVERFLOW, ERR_DIST, ERR_BAD_CODE within a pass).
@@ -46,8 +50,8 @@ TAB_DIST_RD = 48
 TAB_SYM8 = 64  # 72 rows: 4 x 8-bit low bytes of (sym + 1), 0 = dead rank
 TAB_SYMHI = 136  # 9 rows: 32 x 1-bit bit 8 of (sym + 1)
 TAB_DSYM8 = 145  # 8 rows: 4 x 8-bit (dsym + 1), 0 = dead rank
-# then the first symbol's bit, the shortest literal/length code, and the
-# output bytes before the block (0 here: one block per lane)
+# then the first symbol's bit and the shortest literal/length code
+TAB_OUTBASE = 155  # output bytes of the lane before the block
 TAB_W = 160
 
 
@@ -138,7 +142,8 @@ def _dyn_plane(rows, base, end, pwin: int, tab, lit_sym, dist_sym):
 
 def tokenize_dyn_plain(rows: torch.Tensor, end_bits: torch.Tensor,
                        tab: torch.Tensor, starts: torch.Tensor,
-                       status: torch.Tensor, tok_cap: int, pwin: int):
+                       status: torch.Tensor, tok0: torch.Tensor,
+                       tok_cap: int, pwin: int):
     """Plain version: the JAX package's block passes, vectorized over
     lanes; each pass decodes a candidate under the lane's tables at every
     bit position of its window and finds the true symbol starts with
@@ -153,6 +158,8 @@ def tokenize_dyn_plain(rows: torch.Tensor, end_bits: torch.Tensor,
     st = new_lanes(B, tok_cap, dev)
     walk = status < 0
     st["pos"] = starts.to(i64).clone()
+    st["tp"] = tok0.to(i64).clone()
+    st["total"] = tab[:, TAB_OUTBASE].to(i64).clone()
     st["mode"] = torch.where(walk, M_TOKENS, M_DONE)
     st["err"] = torch.where(walk, 0, status)
     lanes = torch.arange(B, device=dev)
@@ -173,27 +180,29 @@ def tokenize_dyn_plain(rows: torch.Tensor, end_bits: torch.Tensor,
 
 def tokenize_dyn_batch(rows: torch.Tensor, end_bits: torch.Tensor,
                        tab: torch.Tensor, starts: torch.Tensor,
-                       status: torch.Tensor, tok_cap: int, pwin: int):
+                       status: torch.Tensor, tok0: torch.Tensor,
+                       tok_cap: int, pwin: int):
     """Tokenize rows uint8[B, M] up to end_bits int32[B] under the tables
     tab int32[B, TAB_W], from starts int32[B], for the lanes whose status
-    int32[B] is negative.
+    int32[B] is negative, after tok0 int32[B] earlier tokens.
 
     Returns (tk, ta, tb, ntok, out_total, end_pos, err), see
     ``kernels.tokenize``.  CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
     if rows.device.type == "cpu":
         return tokenize_dyn_plain(rows, end_bits, tab, starts, status,
-                                  tok_cap, pwin)
+                                  tok0, tok_cap, pwin)
     for name, x, dt in (("rows", rows, torch.uint8),
                         ("end_bits", end_bits, torch.int32),
                         ("tab", tab, torch.int32),
                         ("starts", starts, torch.int32),
-                        ("status", status, torch.int32)):
+                        ("status", status, torch.int32),
+                        ("tok0", tok0, torch.int32)):
         if x.dtype != dt:
             raise ValueError(f"tokenize_dyn_batch: {name} is {x.dtype}, "
                              f"expected {dt}")
     build.require_cuda("tokenize_dyn_batch", rows, end_bits, tab, starts,
-                       status)
+                       status, tok0)
     B, M = rows.shape
     if tab.shape != (B, TAB_W):
         raise ValueError(f"tokenize_dyn_batch: tab {tuple(tab.shape)}")
@@ -207,7 +216,8 @@ def tokenize_dyn_batch(rows: torch.Tensor, end_bits: torch.Tensor,
         return tk, ta, tb, ntok, out_total, end_pos, err
     code = build.library().tokenize_dyn_launch(
         rows.data_ptr(), end_bits.data_ptr(), tab.data_ptr(),
-        starts.data_ptr(), status.data_ptr(), tk.data_ptr(), ta.data_ptr(),
+        starts.data_ptr(), status.data_ptr(), tok0.data_ptr(),
+        tk.data_ptr(), ta.data_ptr(),
         tb.data_ptr(), ntok.data_ptr(), out_total.data_ptr(),
         end_pos.data_ptr(), err.data_ptr(), B, M, tok_cap, pwin,
         build.stream_handle(dev),

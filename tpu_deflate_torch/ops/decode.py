@@ -249,15 +249,17 @@ def _pack_fields(v: torch.Tensor, per: int, bits: int) -> torch.Tensor:
 
 
 def pack_block_tab(lit_lengths: torch.Tensor, dist_lengths: torch.Tensor,
-                   start: torch.Tensor):
+                   start: torch.Tensor, out_base: torch.Tensor | None = None):
     """Packed code tables of one block per lane, from lit_lengths int64[B,
-    288], dist_lengths int64[B, 32] and the first symbol's bit start[B]:
-    (tab int64[B, TAB_W] in the ``kernels.tokenize_dyn`` layout, with no
-    output before the block, min_len int64[B] = the shortest
-    literal/length code, trees_ok bool[B] = neither tree
-    oversubscribed)."""
+    288], dist_lengths int64[B, 32], the first symbol's bit start[B] and
+    the output bytes before the block out_base[B] (default none): (tab
+    int64[B, TAB_W] in the ``kernels.tokenize_dyn`` layout, min_len
+    int64[B] = the shortest literal/length code, trees_ok bool[B] =
+    neither tree oversubscribed)."""
     B = lit_lengths.shape[0]
     dev = lit_lengths.device
+    if out_base is None:
+        out_base = torch.zeros(B, dtype=torch.int64, device=dev)
     llim, lrd, lsym, lover = canon_params(lit_lengths, 288)
     dlim, drd, dsym, dover = canon_params(dist_lengths, 32)
     min_len = torch.where(lit_lengths > 0, lit_lengths, 99).amin(1)
@@ -267,7 +269,7 @@ def pack_block_tab(lit_lengths: torch.Tensor, dist_lengths: torch.Tensor,
         llim, lrd, dlim, drd,
         _pack_fields(symp1 & 0xFF, 4, 8), _pack_fields(symp1 >> 8, 32, 1),
         _pack_fields(dsymp1, 4, 8), start[:, None], min_len[:, None],
-        torch.zeros(B, 5, dtype=torch.int64, device=dev),  # no output before
+        out_base[:, None], torch.zeros(B, 4, dtype=torch.int64, device=dev),
     ], 1)
     assert tab.shape[1] == TAB_W
     return tab, min_len, ~lover & ~dover
@@ -277,23 +279,29 @@ def _static(name: str, dev) -> torch.Tensor:
     return torch.as_tensor(getattr(T, name), dtype=torch.int64, device=dev)
 
 
-def dyn_header_params_batch(rows: torch.Tensor, ends: torch.Tensor):
-    """Parse the first block header of each lane of rows uint8[B, M] with
-    end bits ends int32[B].
+def dyn_header_params_batch(rows: torch.Tensor, ends: torch.Tensor,
+                            base: torch.Tensor | None = None,
+                            out_base: torch.Tensor | None = None):
+    """Parse the block header at bit base[b] (default 0, the first block)
+    of each lane of rows uint8[B, M] with end bits ends int32[B];
+    out_base[B] counts the lane's output bytes before that block (default
+    0) and goes into the table.
 
     Returns the dict of ``tpu_deflate.ops.decode.dyn_header_params_batch``
-    as int32: ok (a static block, or a dynamic one with valid trees, or an
-    empty lane), start (bit of the first symbol), min_len, tab[B, TAB_W];
-    and, for the decoder, btype and status: -1 where the lane's symbols
-    are to be decoded from start, else the error code with which the JAX
-    package's block loop ends the lane in its header (no tokens, end bit
-    stop)."""
+    (which parses bit 0) as int32: ok (a static block, or a dynamic one
+    with valid trees, or an empty lane), start (bit of the first symbol),
+    min_len, tab[B, TAB_W]; and, for the decoder, btype and status: -1
+    where the lane's symbols are to be decoded from start, else the error
+    code with which the JAX package's block loop ends the lane in this
+    header (no more tokens, end bit stop)."""
     B, M = rows.shape
     dev = rows.device
     i64 = torch.int64
     ext = torch.nn.functional.pad(rows.to(i64), (0, CL_WIN // 8 + 64))
     end = ends.to(i64)
-    hdr = bit_windows(ext, torch.zeros(B, dtype=i64, device=dev), 17 + 3 * 19)
+    base = (torch.zeros(B, dtype=i64, device=dev) if base is None
+            else base.to(i64))
+    hdr = bit_windows(ext, base, 17 + 3 * 19)
     btype = (hdr[:, 1] & 3)
     hlit = (hdr[:, 3] & 31) + 257
     hdist = (hdr[:, 8] & 31) + 1
@@ -304,7 +312,7 @@ def dyn_header_params_batch(rows: torch.Tensor, ends: torch.Tensor):
     cl_lengths = torch.zeros(B, 19, dtype=i64, device=dev).scatter(
         1, order.expand(B, 19), raw)
     clim, crd, csym, cover = canon_params(cl_lengths, 19)
-    pos0 = 17 + 3 * hclen
+    pos0 = base + 17 + 3 * hclen
     lengths, end_next, cl_ok = decode_cl_lengths(
         ext, pos0, hlit + hdist, clim, crd, csym)
     sidx = torch.arange(MAX_SYMS, device=dev)
@@ -319,30 +327,36 @@ def dyn_header_params_batch(rows: torch.Tensor, ends: torch.Tensor):
     dist_lengths = torch.where(is_static, _static("STATIC_DIST_LENGTHS", dev),
                                dyn_dist)
     dyn_start = pos0 + end_next
-    start = torch.where(btype == 1, 3, dyn_start)
-    empty = end <= 3
+    start = torch.where(btype == 1, base + 3, dyn_start)
+    first = base == 0
+    empty = first & (end <= 3)
     start = torch.where(empty, 0, start)
-    tab, min_len, trees_ok = pack_block_tab(lit_lengths, dist_lengths, start)
+    tab, min_len, trees_ok = pack_block_tab(lit_lengths, dist_lengths, start,
+                                            out_base)
     ok = empty | (btype == 1) | ((btype == 2) & cl_ok & ~cover & trees_ok)
     min_len = torch.where(empty, 99, min_len)
 
-    # where the block loop stops: the header at bit 0 runs if 0 < end; a
-    # static block's symbols need 3 < end; a dynamic header fails on an
-    # oversubscribed code-length code, or, with pos0 < end, on lengths
-    # that do not decode or oversubscribed trees.  Otherwise the first
-    # pass runs from start.
+    # where the block loop stops: the header at base runs if base < end (a
+    # later header, after stored blocks, is only reached so).  The first
+    # header is followed by a bounds check: a static block's symbols need
+    # 3 < end, a dynamic block's code lengths pos0 < end.  A later header
+    # runs on into its first pass.  A dynamic header fails on an
+    # oversubscribed code-length code, then on lengths that do not decode
+    # or oversubscribed trees.  Otherwise the first pass runs from start.
     nbits = 8 * M
-    fits0 = (pos0 < end) & (pos0 <= nbits)
+    fits3 = ~first | ((3 < end) & (3 <= nbits))
+    fits0 = ~first | ((pos0 < end) & (pos0 <= nbits))
     status = torch.where(
-        btype == 1, torch.where((3 < end) & (3 <= nbits), -1, ERR_INPUT),
+        btype == 1, torch.where(fits3, -1, ERR_INPUT),
         torch.where(cover, ERR_BAD_CODE,
                     torch.where(~fits0, ERR_INPUT,
                                 torch.where(cl_ok & trees_ok, -1,
                                             ERR_BAD_CODE))))
-    stop = torch.where(btype == 1, 3,
+    stop = torch.where(btype == 1, base + 3,
                        torch.where(cover | ~fits0, pos0, dyn_start))
-    status = torch.where(end > 0, status, ERR_OK)
-    stop = torch.where(end > 0, stop, 0)
+    runs = base < end
+    status = torch.where(runs, status, ERR_OK)
+    stop = torch.where(runs, stop, base)
     i32 = torch.int32
     return dict(
         ok=ok.to(i32), start=start.to(i32), min_len=min_len.to(i32),
@@ -352,9 +366,9 @@ def dyn_header_params_batch(rows: torch.Tensor, ends: torch.Tensor):
 
 
 def dyn_lanes(prep: dict):
-    """From a header parse: (coded bool[B] = the first block has Huffman
-    codes, and the starts and status int32[B] that ``tokenize_dyn_batch``
-    takes; a lane that is not coded gets status ERR_OK, no work)."""
+    """From a header parse: (coded bool[B] = the block has Huffman codes,
+    and the starts and status int32[B] that ``tokenize_dyn_batch`` takes;
+    a lane that is not coded gets status ERR_OK, no work)."""
     coded = (prep["btype"] == 1) | (prep["btype"] == 2)
     starts = torch.where(prep["status"] < 0, prep["start"], prep["stop"])
     return coded, starts, torch.where(coded, prep["status"], ERR_OK)
@@ -369,17 +383,27 @@ def tokenize_rows_batch(rows: torch.Tensor, ends: torch.Tensor, tok_cap: int,
     dynamic-tree block as ERR_DYNAMIC.  Otherwise a lane whose first block
     has Huffman codes (static or dynamic) is decoded by
     ``tokenize_dyn_batch`` from its parsed header, and a lane whose first
-    block is stored or of type 3 by ``tokenize_static_batch``; both run
-    over the whole batch, each with the other's lanes empty."""
+    block is stored or of type 3 by ``tokenize_static_batch``.  Where the
+    static kernel stops at a dynamic block after stored ones, the dynamic
+    kernel parses that header and goes on from the static kernel's tokens
+    and output.  Both kernels run over the whole batch."""
     ends = ends.to(torch.int32)
     if static_only:
         return tokenize_static_batch(rows, ends, tok_cap, pwin)
-    prep = dyn_header_params_batch(rows, ends)
+    B, M = rows.shape
+    lead = rows[:, 0] if M else rows.new_zeros(B)
+    huff = ((lead >> 1) & 3 == 1) | ((lead >> 1) & 3 == 2)
+    st = tokenize_static_batch(rows, torch.where(huff, 0, ends), tok_cap, pwin)
+    after = st[6] == ERR_DYNAMIC
+    prep = dyn_header_params_batch(rows, ends, torch.where(after, st[5], 0),
+                                   torch.where(after, st[4], 0))
     coded, starts, status = dyn_lanes(prep)
-    dyn = tokenize_dyn_batch(rows, ends, prep["tab"], starts, status,
+    tok0 = torch.where(after, st[3], 0)
+    dyn = tokenize_dyn_batch(rows, ends, prep["tab"], starts, status, tok0,
                              tok_cap, pwin)
-    st = tokenize_static_batch(rows, torch.where(coded, 0, ends), tok_cap, pwin)
-    return tuple(torch.where(coded[:, None] if d.dim() == 2 else coded, d, s)
+    take = coded[:, None] & (torch.arange(tok_cap, device=rows.device)
+                             >= tok0[:, None])
+    return tuple(torch.where(take if d.dim() == 2 else coded, d, s)
                  for d, s in zip(dyn, st))
 
 

@@ -215,13 +215,14 @@ def _rle_code_lengths(L: torch.Tensor, ops_cap: int = 320):
     return sym, extra, ebits, nops
 
 
-def _dynamic_trees(start, is_match, litlen_sym, dsym, lebits, debits, dev):
+def _dynamic_trees(start, is_match, litlen_sym, dsym, lebits, debits):
     """Per-lane dynamic trees and header, and the static-or-dynamic choice
     by exact bit count.  Returns (use_dyn bool[B], lit_code, lit_len
     int64[B, 288], dist_code, dist_len int64[B, 32], hdr_vals, hdr_nbs
     int64[B, 340]); the tables and header are the static ones, and the
     header widths 0, where a lane keeps static trees."""
     B = start.shape[0]
+    dev = start.device
     i64 = torch.int64
     s_lit_code = _table("STATIC_LITLEN_CODES_REV", dev).expand(B, 288)
     s_lit_len = _table("STATIC_LITLEN_LENGTHS", dev).expand(B, 288)
@@ -323,7 +324,7 @@ def _encode_emissions(data, n, final, dist, length, dynamic: bool = False):
     if dynamic:
         (use_dyn, lit_code, lit_len, dist_code, dist_len, hdr_vals,
          hdr_nbs) = _dynamic_trees(start, is_match, litlen_sym, dsym,
-                                   lebits, debits, dev)
+                                   lebits, debits)
         btype = torch.where(use_dyn, 2, 1)
         eob_val = torch.where(use_dyn, lit_code[:, 256], 0)[:, None]
         eob_nb = torch.where(use_dyn, lit_len[:, 256], 7)[:, None]
