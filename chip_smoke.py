@@ -7,8 +7,15 @@ Phases, each of which raises on failure:
   1. device  — require a CUDA card; print nvidia-smi's name and power limit
   2. build   — compile the kernels in tpu_deflate_torch/csrc with nvcc
   3. kernels — each kernel against its plain PyTorch version on the card,
-               at the main path's shapes (128 lanes of 64 KiB chunks of the
-               bench corpus), exact equality; CUDA-event times of both
+               at its path's shapes (128 lanes of 64 KiB chunks of the
+               bench corpus; for resolve_roots and expand_fused2 one
+               segment of a single stream, taken from decompress of zlib
+               streams, then long rows with a distance-1 run and
+               distances up to 32768), exact equality; CUDA-event times of
+               both and of the one PyTorch call that computes the same
+               function, where there is one; the least time the card
+               could take, from the bytes and operations of this run's
+               inputs
   4. main    — 8 MiB of tests/data/corpus.bin.gz through compress_indexed
                and decompress_indexed with DEFAULT; stock zlib checks the
                stream; every kernel must have launched
@@ -21,9 +28,18 @@ Phases, each of which raises on failure:
                have launched; then a mixed batch of dynamic, stored and
                short-code lanes, and lanes of a stored block followed by a
                dynamic one
+  7. stream  — decompress of one zlib stream, as one lane: zlib -6 of the
+               8 MiB, the stored-mix input at levels 6 and 0, the port's
+               own static stream (also with dynamic=False) and dynamic
+               stream without their index, and a corrupt stream, which
+               must raise DeflateError; where the time of the -6 stream
+               goes
+  8. long rows — the 8 MiB as 8 chunks of 1 MiB through compress_indexed
+               and decompress_indexed; zlib reads the stream
 Phase 3 also checks the dynamic path's two kernels on its 128 lanes.  The
 line before the last is {"kernels": [...]}, each kernel's launches counted
-on its own path (4 or 6); the last line is {"ok": true, "device": {...}}.
+on its own path (4, 6, or 7 and 8 together); the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -49,6 +65,62 @@ PIN_STATIC = (4869675,
               "9db8f28dac24c06f49303b3b97b33c2d28972cda04a0caa3bc00ed46e2cef786")
 PIN_DYNAMIC = (3695814,
                "b9db8274d7ff8988ce18f8e79e3e8dd2d814da3f09b9d8f016a8383b13ae0faa")
+
+
+# NVIDIA's data sheet for the H100 SXM: device memory rate, and the float32
+# rate outside the tensor cores, to which the kernels' integer work is held
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+SYMBOL_OPS = 32  # integer operations to decode one symbol, about
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved: float, ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate."""
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+# What each kernel must move and do for one call: (bytes, operations) from
+# its arguments and results, counting what the data needs (live tokens, the
+# bits consumed, the distances searched), each byte once.
+def work_match(args, outs):
+    chunks, lens, window, _ = args
+    dist, length = outs
+    searched = int(dist.where(dist > 0, dist.new_tensor(window)).sum())
+    return nbytes(chunks, lens, dist, length), searched + int(length.sum())
+
+
+def work_scatter(args, outs):
+    idx, vals, _ = args
+    return nbytes(idx, vals, outs[0]), vals.numel()
+
+
+def work_tokenize(args, outs, start=0):
+    _tk, _ta, _tb, ntok, _total, pos, err = outs
+    tokens = int(ntok.sum())
+    read = int(((pos - start + 7) // 8).clamp_min(0).sum())
+    # the end bit read and four counters written per lane
+    return read + 12 * tokens + 20 * ntok.numel(), SYMBOL_OPS * tokens
+
+
+def work_tokenize_dyn(args, outs):
+    _rows, _ends, tab, starts, status, tok0 = args[:6]
+    moved, ops = work_tokenize(args, outs, starts)
+    # two comparison decodes (literal/length, distance) for a symbol
+    return moved + nbytes(tab, starts, status, tok0), 2 * ops
+
+
+def work_expand(tp, total, out):
+    return 12 * int(tp.sum()) + nbytes(tp, total, out), int(total.sum())
+
+
+def work_resolve(args, outs):
+    return nbytes(*args, outs[0]), 2 * outs[0].numel()
 
 
 def require(ok: bool, what: str) -> None:
@@ -121,15 +193,19 @@ def main() -> None:
     from tpu_deflate_torch import (
         DEFAULT,
         DeflateConfig,
+        DeflateError,
         compress_indexed,
+        decompress,
         decompress_indexed,
     )
     from tpu_deflate_torch.kernels import build
+    from tpu_deflate_torch.kernels.expand2 import expand_fused2, expand_fused2_plain
     from tpu_deflate_torch.kernels.expand3 import expand_fused3, expand_fused3_plain
     from tpu_deflate_torch.kernels.match2 import (
         match_bitplane_batch,
         match_bitplane_plain,
     )
+    from tpu_deflate_torch.kernels.resolve import resolve_roots, resolve_roots_plain
     from tpu_deflate_torch.kernels.monotone import (
         mono_compact,
         mono_compact_plain,
@@ -146,6 +222,7 @@ def main() -> None:
     )
     from tpu_deflate_torch.ops import decode as D
     from tpu_deflate_torch.ops import encode as E
+    from tpu_deflate_torch.ops import foreign as F
 
     # ---- 1. device ------------------------------------------------------
     smi = subprocess.run(
@@ -198,29 +275,78 @@ def main() -> None:
     require(bool(coded.all()), "a corpus lane is stored with dynamic trees on")
     log(f"dynamic trees on {int((prep['btype'] == 2).sum())} of {B} lanes")
 
+    # the single stream's lanes: one segment of zlib -6 of the 8 MiB, with
+    # distances up to 32768, as decompress hands it to expand_fused2, and
+    # one segment with stored tokens (the stored-mix input, below) as it
+    # hands it to resolve_roots
+    zs6 = zlib.compress(data, 6)
+    rng = torch.Generator().manual_seed(SEED)
+    noise = torch.randint(0, 256, (256 << 10,), generator=rng, dtype=torch.uint8)
+    mixed = data[: 1 << 20] + bytes(noise.numpy()) + data[1 << 20 : 2 << 20]
+    zmix6 = zlib.compress(mixed, 6)
+    segs, chains = [], []
+    orig2 = capture(D, "expand_fused2", segs)
+    origr = capture(D, "resolve_roots", chains)
+    require(decompress(zs6, device=dev) == data, "zlib -6 stream did not decode")
+    require(decompress(zmix6, device=dev) == mixed, "stored-mix -6 did not decode")
+    D.expand_fused2, D.resolve_roots = orig2, origr
+    require(len(segs) >= 16 and len(chains) >= 1,
+            f"{len(segs)} expand_fused2 and {len(chains)} resolve_roots calls")
+    seg = segs[1]  # a full segment behind a 32 KiB window of real output
+    seg_live = seg[2][0, : int(seg[3][0])]
+    require(seg[5] == F.SEG_CAP and int(seg_live.max()) > 2048,
+            f"segment row {seg[5]}, largest distance {int(seg_live.max())}")
+    chain = max(chains, key=lambda a: int((a[0] != torch.arange(
+        a[0].shape[1], device=dev)).sum()))  # the one with most match bytes
+    require(chain[0].shape == (1, F.SEG_CAP), f"resolve row {chain[0].shape}")
+
+    def scatter_library(idx, vals, size):
+        """The same sums by one ``Tensor.scatter_add_``; entries that drop
+        out go to a spare last column."""
+        Bq, C, K = vals.shape
+        tgt = torch.where((idx < 0) | (idx >= size), size, idx).to(torch.int64)
+        tgt = tgt[:, None, :].expand(Bq, C, K).contiguous()
+
+        def call():
+            out = torch.zeros(Bq, C, size + 1, dtype=torch.int32, device=dev)
+            return out.scatter_add_(2, tgt, vals)[:, :, :size]
+
+        return call
+
+    tokenize_args = (rows, ends, tok_cap, pwin)
+    dyn_args = (drows, dends, prep["tab"], starts, status,
+                torch.zeros_like(starts), tok_cap, pwin)
     cases = [
         ("match_bitplane_batch", "match2.cu", "tpu_deflate/kernels/match2.py:201",
          match_bitplane_batch, match_bitplane_plain,
-         (chunks, lens, cfg.window, cfg.max_match)),
+         (chunks, lens, cfg.window, cfg.max_match), work_match, None),
         ("mono_scatter_add", "monotone.cu", "tpu_deflate/kernels/monotone.py:110",
-         mono_scatter_add, mono_scatter_add_plain, (idx, ch, M + 8)),
+         mono_scatter_add, mono_scatter_add_plain, (idx, ch, M + 8),
+         work_scatter, scatter_library(idx, ch, M + 8)),
         ("tokenize_static_batch", "tokenize.cu",
          "tpu_deflate/kernels/tokenize.py:469",
-         tokenize_static_batch, tokenize_static_plain,
-         (rows, ends, tok_cap, pwin)),
+         tokenize_static_batch, tokenize_static_plain, tokenize_args,
+         work_tokenize, None),
         ("expand_fused3", "expand3.cu", "tpu_deflate/kernels/expand3.py:389",
          expand_fused3, expand_fused3_plain,
-         (rows, off, c1, tb, tp, total, chunk)),
+         (rows, off, c1, tb, tp, total, chunk),
+         lambda a, o: work_expand(a[4], a[5], o[0]), None),
         ("tokenize_dyn_batch", "tokenize_dyn.cu",
          "tpu_deflate/kernels/tokenize_dyn.py:465",
-         tokenize_dyn_batch, tokenize_dyn_plain,
-         (drows, dends, prep["tab"], starts, status, torch.zeros_like(starts),
-          tok_cap, pwin)),
+         tokenize_dyn_batch, tokenize_dyn_plain, dyn_args, work_tokenize_dyn,
+         None),
         ("mono_compact", "monotone.cu", "tpu_deflate/kernels/monotone.py:243",
-         mono_compact, mono_compact_plain, paints[0]),
+         mono_compact, mono_compact_plain, paints[0], work_scatter,
+         scatter_library(*paints[0])),
+        ("resolve_roots", "resolve.cu", "tpu_deflate/kernels/resolve.py:156",
+         resolve_roots, lambda p, v: resolve_roots_plain(p.long(), v.long()),
+         chain, work_resolve, None),
+        ("expand_fused2", "expand2.cu", "tpu_deflate/kernels/expand2.py:337",
+         expand_fused2, expand_fused2_plain, seg,
+         lambda a, o: work_expand(a[3], a[4], o[0]), None),
     ]
     results = []
-    for kname, src, replaces, kern, plain, args in cases:
+    for kname, src, replaces, kern, plain, args, work, library in cases:
         got, want = kern(*args), plain(*args)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -229,13 +355,63 @@ def main() -> None:
         require(err == 0, f"{kname} differs from its plain version by {err}")
         ms = cuda_ms(lambda: kern(*args), reps=10)
         plain_ms = cuda_ms(lambda: plain(*args), reps=2)
-        log(f"kernel {kname}: equal to plain on {B} lanes; {ms:.3f} ms "
-            f"(plain {plain_ms:.3f} ms) on {name}, {smi}")
+        library_ms = None
+        if library is not None:
+            require(max_abs_err((library(),), got) == 0,
+                    f"{kname}: the library call differs from the kernel")
+            library_ms = cuda_ms(library, reps=10)
+        bound_ms, bound_by = bound(*work(args, got))
+        lanes = got[0].shape[0]
+        log(f"kernel {kname}: equal to plain on {lanes} lanes; {ms:.3f} ms "
+            f"(plain {plain_ms:.3f} ms, library call "
+            f"{'none' if library_ms is None else f'{library_ms:.3f} ms'}, "
+            f"bound {bound_ms:.5f} ms by {bound_by}) on {name}, {smi}")
         results.append(dict(
             name=kname, route="cuda", source=f"tpu_deflate_torch/csrc/{src}",
             replaces=replaces, fn=kern, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms,
         ))
+
+    # the two new kernels again where trouble is likely: a chain as deep as
+    # the row (a distance-1 run over a whole segment, over a whole 1 MiB
+    # row) and distances up to 32768, on synthetic lanes
+    N = F.SEG_CAP
+    at = torch.arange(N, device=dev)
+    back = torch.randint(1, 32769, (N,), generator=rng).to(dev)
+    forest = torch.where(torch.rand(N, generator=rng).to(dev) < 0.8,
+                         (at - back).clamp_min(0), at)
+    parent = torch.stack([(at - 1).clamp_min(0), forest]).to(torch.int32)
+    val = torch.randint(0, 256, (2, N), generator=rng, dtype=torch.int32).to(dev)
+    got = resolve_roots(parent, val)
+    require(torch.equal(got.long(), resolve_roots_plain(parent.long(), val.long())),
+            "resolve_roots differs from plain on a distance-1 run of a segment")
+    deep_ms = cuda_ms(lambda: resolve_roots(parent, val), reps=5)
+
+    row_cap = 1 << 20
+    run = 1 + 258 * ((row_cap - 1) // 258)
+    n_lit, n_far = 32768, 3000
+    far_len = torch.randint(3, 259, (n_far,), generator=rng)
+    K = max((run - 1) // 258 + 1, n_lit + n_far)
+    tk2, ta2, tb2 = (torch.zeros(2, K, dtype=torch.int32) for _ in range(3))
+    tk2[0, 1 : 1 + run // 258] = 1  # lane 0: a byte, then its run to 1 MiB
+    ta2[0, 0], ta2[0, 1 : 1 + run // 258], tb2[0, 1 : 1 + run // 258] = 65, 258, 1
+    ta2[1, :n_lit] = torch.randint(0, 256, (n_lit,), generator=rng)
+    tk2[1, n_lit : n_lit + n_far] = 1  # lane 1: matches at any distance
+    ta2[1, n_lit : n_lit + n_far] = far_len
+    tb2[1, n_lit : n_lit + n_far] = torch.randint(1, 32769, (n_far,), generator=rng)
+    tp2 = torch.tensor([1 + run // 258, n_lit + n_far], dtype=torch.int32)
+    off2, c12, total2 = D._expand_inputs(tk2.to(dev), ta2.to(dev), tp2.to(dev))
+    args2 = (off2, c12, tb2.to(dev), tp2.to(dev), total2, row_cap)
+    require(int(total2[0]) == run and int(total2[1]) <= row_cap, "synthetic lanes")
+    require(torch.equal(expand_fused2(*args2), expand_fused2_plain(*args2)),
+            "expand_fused2 differs from plain on a distance-1 run of 1 MiB")
+    run_ms = cuda_ms(lambda: expand_fused2(*args2), reps=5)
+    log(f"deep chains: resolve_roots on a distance-1 run of {N} and a forest "
+        f"with distances to 32768 equal to plain, {deep_ms:.3f} ms; "
+        f"expand_fused2 on a distance-1 run of {run} bytes and {n_far} "
+        f"matches at distances to 32768 equal to plain, {run_ms:.3f} ms "
+        f"on {name}, {smi}")
 
     # ---- 4. the main path -----------------------------------------------
     static_path = results[:4]
@@ -274,9 +450,6 @@ def main() -> None:
         f"on {name}, {smi}")
 
     # ---- 5. stored lanes ------------------------------------------------
-    rng = torch.Generator().manual_seed(SEED)
-    noise = torch.randint(0, 256, (256 << 10,), generator=rng, dtype=torch.uint8)
-    mixed = data[: 1 << 20] + bytes(noise.numpy()) + data[1 << 20 : 2 << 20]
     stream2, index2 = compress_indexed(mixed, cfg, device=dev)
     stored = int((index2 == chunk + 10).sum())  # two stored blocks per chunk
     require(stored >= 3, f"only {stored} stored lanes in the mixed input")
@@ -296,7 +469,7 @@ def main() -> None:
     dback = decompress_indexed(dstream, dindex, dcfg, device=dev)
     t2 = time.perf_counter()
     counts = {r["name"]: r["fn"].launches for r in results}
-    for r in results[4:]:
+    for r in results[4:6]:
         r["launches"] = counts[r["name"]]
     require(zlib.decompress(dstream) == data, "zlib rejects the dynamic stream")
     require(dback == data, "the dynamic stream did not round-trip")
@@ -376,6 +549,96 @@ def main() -> None:
         require(int(serr[i]) == 0 and sout[i, : int(stot[i])].cpu().numpy()
                 .tobytes() == w, f"stored-then-dynamic lane {i} differs from zlib")
     log(f"stored then dynamic: {len(lanes)} lanes equal to zlib")
+
+    # ---- 7. one zlib stream, one lane -------------------------------------
+    for r in results:
+        r["fn"].launches = 0
+    t0 = time.perf_counter()
+    back = decompress(zs6, device=dev)
+    stream_s = time.perf_counter() - t0
+    require(back == data, "decompress(zlib -6 of 8 MiB) did not return the input")
+    blocks = tokenize_dyn_batch.launches
+    for what, zs, want, zcfg in (
+        ("stored-mix -6", zmix6, mixed, DEFAULT),
+        ("stored-mix -0", zlib.compress(mixed, 0), mixed, DEFAULT),
+        ("own static stream", stream, data, DEFAULT),
+        ("own static stream, dynamic=False", stream, data,
+         DeflateConfig(dynamic=False)),
+        ("own dynamic stream", dstream, data, DEFAULT),
+    ):
+        t0 = time.perf_counter()
+        require(decompress(zs, zcfg, device=dev) == want,
+                f"decompress({what}) did not return the input")
+        log(f"single stream, {what}: {len(zs)} B -> {len(want)} B in "
+            f"{time.perf_counter() - t0:.3f} s (host clock) on {name}, {smi}")
+    try:
+        decompress(dstream, DeflateConfig(dynamic=False), device=dev)
+        require(False, "dynamic=False decoded a dynamic stream")
+    except DeflateError:
+        pass
+    broken = bytearray(zs6)
+    broken[len(broken) // 2] ^= 0x10
+    try:
+        decompress(bytes(broken), device=dev)
+        require(False, "a corrupt stream decoded")
+    except DeflateError as e:
+        log(f"single stream, corrupt: DeflateError({e})")
+    log(f"single stream, zlib -6: {len(zs6)} B -> {len(data)} B, {blocks} "
+        f"dynamic blocks, {stream_s:.3f} s = {len(data) / stream_s / 1e9:.5f} "
+        f"GB/s (host clock, with transfers and the Adler check) on {name}, {smi}")
+
+    # where that time goes: each stage closed by a synchronize
+    spent = {}
+
+    def timed(module, fname):
+        fn = getattr(module, fname)
+
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[fname] = spent.get(fname, 0.0) + time.perf_counter() - t
+            return out
+
+        setattr(module, fname, wrapper)
+        return fn
+
+    staged = [(D, "tokenize"), (D, "dyn_header_params_batch"),
+              (D, "tokenize_dyn_batch"), (F, "expand_segments"),
+              (F, "expand_batch")]
+    originals = [timed(m, f) for m, f in staged]
+    t0 = time.perf_counter()
+    decompress(zs6, device=dev)
+    whole = time.perf_counter() - t0
+    for (m, f), fn in zip(staged, originals):
+        setattr(m, f, fn)
+    log("single stream, zlib -6, stages (host clock, synchronized): whole "
+        f"{whole:.3f} s; walk {spent['tokenize']:.3f} s, of which header "
+        f"parse {spent['dyn_header_params_batch']:.3f} s and dynamic kernel "
+        f"{spent['tokenize_dyn_batch']:.3f} s; expansion "
+        f"{spent['expand_segments']:.3f} s, of which expand_batch "
+        f"{spent['expand_batch']:.3f} s on {name}, {smi}")
+
+    # ---- 8. long rows -----------------------------------------------------
+    lcfg = DeflateConfig(chunk_size=1 << 20)
+    t0 = time.perf_counter()
+    lstream, lindex = compress_indexed(data, lcfg, device=dev)
+    t1 = time.perf_counter()
+    lback = decompress_indexed(lstream, lindex, lcfg, device=dev)
+    t2 = time.perf_counter()
+    counts = {r["name"]: r["fn"].launches for r in results}
+    require(len(lindex) == 8, f"{len(lindex)} long rows")
+    require(zlib.decompress(lstream) == data, "zlib rejects the long-row stream")
+    require(lback == data, "the long rows did not round-trip")
+    for r in results[6:]:
+        r["launches"] = counts[r["name"]]
+        require(r["launches"] > 0,
+                f"{r['name']} never launched in single-stream and long-row decode")
+    log(f"long rows: {len(data)} B in {len(lindex)} chunks of 1 MiB -> "
+        f"{len(lstream)} B, zlib verified; compress_indexed {t1 - t0:.3f} s, "
+        f"decompress_indexed {t2 - t1:.3f} s (host clock); launches in phases "
+        f"7 and 8 {counts} on {name}, {smi}")
 
     for r in results:
         r.pop("fn")

@@ -7,13 +7,21 @@ in ``csrc/``; tensors on the CPU run each kernel's plain PyTorch version.
 
 Quick start::
 
-    from tpu_deflate_torch import DEFAULT, compress_indexed, decompress_indexed
+    import zlib
+    from tpu_deflate_torch import (DEFAULT, compress_indexed, decompress,
+                                   decompress_indexed)
 
     stream, index = compress_indexed(data, DEFAULT, device="cuda")
     assert decompress_indexed(stream, index, DEFAULT, device="cuda") == data
+    assert decompress(zlib.compress(data, 6), device="cuda") == data
 """
 
-from tpu_deflate_torch.api import compress, compress_indexed, decompress_indexed
+from tpu_deflate_torch.api import (
+    compress,
+    compress_indexed,
+    decompress,
+    decompress_indexed,
+)
 from tpu_deflate_torch.config import (
     DECOMPRESS_ONLY,
     DEFAULT,
@@ -36,5 +44,6 @@ __all__ = [
     "REFERENCE_PARITY",
     "compress",
     "compress_indexed",
+    "decompress",
     "decompress_indexed",
 ]

@@ -21,6 +21,7 @@ from tpu_deflate_torch.ops.decode import (
     ERR_DYNAMIC,
     ERR_NAMES,
     decode_rows_batch,
+    zlib_decompress_device,
 )
 from tpu_deflate_torch.ops.encode import encode_blocks_batch
 from tpu_deflate_torch.ref.inflate import DeflateError
@@ -68,6 +69,15 @@ def compress(data: bytes, config: DeflateConfig = DeflateConfig(),
     if not config.compress:
         raise ValueError("config disables compress")
     return _stream(*deflate_device(data, config, device))
+
+
+def decompress(data: bytes, config: DeflateConfig = DeflateConfig(),
+               device="cuda") -> bytes:
+    """zlib-compatible decompress on ``device`` of any zlib stream, as one
+    lane; raises DeflateError on a corrupt stream."""
+    if not config.decompress:
+        raise ValueError("config disables decompress")
+    return zlib_decompress_device(data, config, device)
 
 
 def compress_indexed(data: bytes, config: DeflateConfig = DeflateConfig(),

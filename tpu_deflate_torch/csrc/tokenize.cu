@@ -24,6 +24,17 @@
 // ERR_OVERFLOW if its tokens do not fit, else ERR_DIST if one reaches
 // before the output start, else ERR_BAD_CODE.  A symbol that starts at or
 // past the lane's end bit is a bad code.
+//
+// A lane may also be one whole stream of many blocks: with F_GO_ON an
+// end-of-block ends the lane only in a final block (or, with F_ONE_BLOCK,
+// in any first block), and the walk goes on through further stored and
+// static blocks until a dynamic header stops it with ERR_DYNAMIC at that
+// header's bit.  The caller decodes that block elsewhere and resumes the
+// walk after it: `resume` gives each lane's bit position, token count and
+// output bytes so far, the tokens go on from that slot of the same
+// buffers, and distances may reach into all earlier output.  F_LATER says
+// that the header at the resume position is not the stream's first, so
+// the bounds check that follows only the first header is left out.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,6 +47,7 @@ constexpr int ERR_OK = 0, ERR_METHOD = 1, ERR_BAD_CODE = 2, ERR_DIST = 4,
 constexpr int TK_LIT = 0, TK_MATCH = 1, TK_STORED = 2;
 constexpr int M_HEADER = 0, M_TOKENS = 3, M_DONE = 4, M_ERROR = 5;
 constexpr int K_LIT = 0, K_EOB = 1, K_MATCH = 2, K_BAD = 3;
+constexpr int F_GO_ON = 1, F_ONE_BLOCK = 2, F_LATER = 4;
 
 // The stream's bits from bit position pos on, LSB first; bytes past the
 // row read as zero.  At least 57 bits are valid.
@@ -111,12 +123,16 @@ __device__ __forceinline__ Sym static_symbol(uint64_t w) {
   return s;
 }
 
+// kStream: the lane is a whole stream (flags and resume are read); without
+// it they are compiled out, and the lane stops at its first end-of-block.
+template <bool kStream>
 __global__ void tokenize_static_kernel(
     const uint8_t* __restrict__ rows, const int* __restrict__ end_bits,
     int* __restrict__ tk, int* __restrict__ ta, int* __restrict__ tb,
     int* __restrict__ ntok_out, int* __restrict__ total_out,
-    int* __restrict__ pos_out, int* __restrict__ err_out, int B, int M,
-    int tok_cap, int pwin) {
+    int* __restrict__ pos_out, int* __restrict__ err_out,
+    const int* __restrict__ resume, int flags, int B, int M, int tok_cap,
+    int pwin) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;
   const uint8_t* row = rows + (size_t)lane * M;
@@ -126,8 +142,17 @@ __global__ void tokenize_static_kernel(
   const long long end = end_bits[lane];
   const long long nbits = 8LL * M;
 
-  long long pos = 0;
-  int mode = M_HEADER, tp = 0, total = 0, err = ERR_OK;
+  if (!kStream) {
+    resume = nullptr;
+    flags = 0;
+  }
+  long long pos = resume ? resume[3 * lane] : 0;
+  int tp = resume ? resume[3 * lane + 1] : 0;
+  int total = resume ? resume[3 * lane + 2] : 0;
+  int mode = M_HEADER, err = ERR_OK, bfinal = 0;
+  // what ends the lane: any end-of-block, any block, or a final block
+  const bool eob_ends = !(flags & F_GO_ON) || (flags & F_ONE_BLOCK);
+  const bool stored_ends = (flags & F_ONE_BLOCK) != 0;
 
   auto in_bounds = [&]() {
     return pos <= nbits && pos < end && tp < tok_cap - 1;
@@ -135,7 +160,7 @@ __global__ void tokenize_static_kernel(
 
   auto header = [&]() {
     const uint64_t w = bits_at(row, M, pos);
-    const int bfinal = (int)(w & 1);
+    bfinal = (int)(w & 1);
     const int btype = (int)((w >> 1) & 3);
     if (btype == 0) {
       const long long p = (pos + 3 + 7) & ~7LL;
@@ -148,7 +173,7 @@ __global__ void tokenize_static_kernel(
       ++tp;
       total += len;
       pos = p + 32 + 8LL * len;
-      mode = !ok ? M_ERROR : (bfinal ? M_DONE : M_HEADER);
+      mode = !ok ? M_ERROR : (bfinal || stored_ends ? M_DONE : M_HEADER);
       if (!ok) err = ERR_STORED;
     } else if (btype == 1) {
       pos += 3;
@@ -203,11 +228,11 @@ __global__ void tokenize_static_kernel(
       mode = M_ERROR;
       err = too_far ? ERR_DIST : (!cap_ok ? ERR_OVERFLOW : ERR_BAD_CODE);
     } else {
-      mode = eob ? M_DONE : M_TOKENS;
+      mode = !eob ? M_TOKENS : (eob_ends || bfinal ? M_DONE : M_HEADER);
     }
   };
 
-  if (mode < M_DONE && in_bounds()) header();
+  if (!(flags & F_LATER) && mode < M_DONE && in_bounds()) header();
   while (mode < M_DONE && in_bounds()) {
     if (mode == M_HEADER) header();
     if (mode == M_TOKENS) block_pass();
@@ -228,12 +253,15 @@ __global__ void tokenize_static_kernel(
 extern "C" int tokenize_static_launch(const void* rows, const void* end_bits,
                                       void* tk, void* ta, void* tb,
                                       void* ntok, void* total, void* pos,
-                                      void* err, int B, int M, int tok_cap,
+                                      void* err, const void* resume,
+                                      int flags, int B, int M, int tok_cap,
                                       int pwin, void* stream) {
   // one lane per block: the lanes spread over the SMs and their L1 caches
-  tokenize_static_kernel<<<B, 1, 0, (cudaStream_t)stream>>>(
+  auto kernel = (resume || flags) ? tokenize_static_kernel<true>
+                                   : tokenize_static_kernel<false>;
+  kernel<<<B, 1, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)rows, (const int*)end_bits, (int*)tk, (int*)ta,
-      (int*)tb, (int*)ntok, (int*)total, (int*)pos, (int*)err, B, M,
-      tok_cap, pwin);
+      (int*)tb, (int*)ntok, (int*)total, (int*)pos, (int*)err,
+      (const int*)resume, flags, B, M, tok_cap, pwin);
   return (int)cudaGetLastError();
 }

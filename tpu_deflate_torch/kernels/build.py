@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``, with the
+headers ``csrc/*.cuh`` they share).
 
 Each source compiles with its own ``nvcc``, all at once, and the objects
 link into one shared library with a plain C interface, bound with
@@ -34,11 +35,13 @@ SIGNATURES = {
     "match2_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mono_scatter_add_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mono_compact_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "tokenize_static_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _P],
+    "tokenize_static_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _P],
     "expand3_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tokenize_dyn_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _I, _I, _I, _I, _P],
+    "resolve_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "expand2_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -56,7 +59,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> pathlib.Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())

@@ -1,17 +1,22 @@
-"""Back-reference resolution by pointer doubling (plain version only).
+"""Back-reference resolution by pointer doubling (``csrc/resolve.cu``).
 
 Each output position points at its parent (itself for a literal or
 stored byte, the byte it copies for a match byte); the value of a
-position is the value at the root of its chain.  The TPU kernel
-``tpu_deflate.kernels.resolve.resolve_roots`` serves the JAX package's
-XLA expand route, which the port does not take: the expand kernel
-(``kernels/expand3.py``) resolves matches as it writes them, and this
-module is part of that kernel's plain version.
+position is the value at the root of its chain.  ``ops.decode.
+expand_batch`` takes this route for rows that the expand kernels do not:
+a long row with a stored token, or a row whose length is no multiple of
+2048, as the JAX package's ``expand_batch`` sends them through
+``tpu_deflate.kernels.resolve.resolve_roots``.  The plain version is also
+the second half of the expand kernels' plain versions.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from tpu_deflate_torch.kernels import build
 
 
 def resolve_roots_plain(parent: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
@@ -23,3 +28,39 @@ def resolve_roots_plain(parent: torch.Tensor, val: torch.Tensor) -> torch.Tensor
         if torch.equal(nxt, p):
             return torch.gather(val, -1, p)
         p = nxt
+
+
+def resolve_roots(parent: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """val at the root of each position's parent chain: parent, val
+    int32[..., N], parents in [0, N) and every chain ending at a position
+    that is its own parent; returns int32[..., N].
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if parent.shape != val.shape:
+        raise ValueError(f"resolve_roots: parent {tuple(parent.shape)} and "
+                         f"val {tuple(val.shape)} differ in shape")
+    if parent.dtype != torch.int32 or val.dtype != torch.int32:
+        raise ValueError("resolve_roots: expects int32 parent and val")
+    if parent.device.type == "cpu":
+        return resolve_roots_plain(parent.long(), val)
+    build.require_cuda("resolve_roots", parent, val)
+    N = parent.shape[-1]
+    out = torch.empty_like(val)
+    if parent.numel() == 0:
+        return out
+    # after the first launch and r jumps a pointer has moved 2^(r + 1)
+    # parents up, and no chain is longer than the row
+    rounds = max(1, math.ceil(math.log2(N)))
+    ptr = torch.empty_like(parent)
+    flags = torch.zeros(rounds + 2, dtype=torch.int32, device=parent.device)
+    code = build.library().resolve_launch(
+        parent.data_ptr(), val.data_ptr(), ptr.data_ptr(), flags.data_ptr(),
+        out.data_ptr(), parent.numel() // N, N, rounds,
+        build.stream_handle(parent.device),
+    )
+    build.check(code, "resolve")
+    resolve_roots.launches += 1
+    return out
+
+
+resolve_roots.launches = 0

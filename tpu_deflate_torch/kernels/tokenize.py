@@ -17,6 +17,15 @@ checks decide its error code in the order ERR_OVERFLOW (token capacity),
 ERR_DIST (a distance before the output start), ERR_BAD_CODE; both
 versions here walk the same passes, so they report the same code.  A
 dynamic-tree block gives ERR_DYNAMIC, block type 3 ERR_METHOD.
+
+With ``stop_at_eob=False`` a lane is one whole stream, as in ``tokenize(
+stop_at_eob=False)``: the walk goes on after an end-of-block unless the
+block was final (``one_block``: after the first block of any type), and
+stops with ERR_DYNAMIC at a dynamic header's bit.  ``resume`` continues a
+walk that another decoder took over for such a block: (tk, ta, tb, state)
+with the token buffers so far and state int32[B, 3] = each lane's bit
+position, token count and output bytes; ``later`` says that the header
+there is not the stream's first.
 """
 
 from __future__ import annotations
@@ -44,6 +53,12 @@ M_HEADER = 0
 M_TOKENS = 3
 M_DONE = 4
 M_ERROR = 5
+
+# the kernel's flags: go on after an end-of-block, end after any first
+# block, the header at the resume position is not the stream's first
+F_GO_ON = 1
+F_ONE_BLOCK = 2
+F_LATER = 4
 
 # kinds of the symbol decoded at one bit position
 K_LIT = 0
@@ -123,7 +138,7 @@ def new_lanes(B: int, tok_cap: int, device) -> dict:
     that are not tokens."""
     i64 = torch.int64
     st = {k: torch.zeros(B, dtype=i64, device=device)
-          for k in ("pos", "mode", "tp", "total", "err")}
+          for k in ("pos", "mode", "tp", "total", "err", "bfinal")}
     for k in ("tk", "ta", "tb"):
         st[k] = torch.zeros(B, tok_cap + 1, dtype=i64, device=device)
     return st
@@ -203,7 +218,9 @@ def finish(st: dict, end: torch.Tensor, tok_cap: int):
 
 
 def tokenize_static_plain(rows: torch.Tensor, end_bits: torch.Tensor,
-                          tok_cap: int, pwin: int):
+                          tok_cap: int, pwin: int, stop_at_eob: bool = True,
+                          one_block: bool = False, resume=None,
+                          later: bool = False):
     """Plain version: the JAX package's block loop, vectorized over lanes.
     Each pass decodes a candidate at every bit position of its window and
     finds the true symbol starts with ``chase_reach``."""
@@ -213,8 +230,14 @@ def tokenize_static_plain(rows: torch.Tensor, end_bits: torch.Tensor,
     ext = torch.nn.functional.pad(rows.to(i64), (0, pwin // 8 + 16))
     end = end_bits.to(i64)
     st = new_lanes(B, tok_cap, dev)
-    pos, mode, tp, total, err = (st[k] for k in
-                                 ("pos", "mode", "tp", "total", "err"))
+    if resume is not None:
+        for k, buf in zip(("tk", "ta", "tb"), resume[:3]):
+            st[k][:, :tok_cap] = buf
+        for j, k in enumerate(("pos", "tp", "total")):
+            st[k] += resume[3][:, j]
+    pos, mode, tp, total, err, bfinal = (st[k] for k in (
+        "pos", "mode", "tp", "total", "err", "bfinal"))
+    eob_ends = stop_at_eob or one_block
     tk, ta, tb = st["tk"], st["ta"], st["tb"]
     lanes = torch.arange(B, device=dev)
 
@@ -226,7 +249,8 @@ def tokenize_static_plain(rows: torch.Tensor, end_bits: torch.Tensor,
         if s.numel() == 0:
             return
         p0, rs = pos[s], ext[s]
-        bfinal = _peek(rs, p0, 1)
+        bf = _peek(rs, p0, 1)
+        bfinal[s] = bf
         btype = _peek(rs, p0 + 1, 2)
         # stored: LEN / NLEN at the next byte boundary, data after them
         p = (p0 + 3 + 7) & ~7
@@ -243,7 +267,8 @@ def tokenize_static_plain(rows: torch.Tensor, end_bits: torch.Tensor,
                               torch.where(btype == 1, p0 + 3, p0))
         pos[s] = new_pos
         stored_mode = torch.where(
-            ok, torch.where(bfinal == 1, M_DONE, M_HEADER), M_ERROR
+            ok, M_DONE if one_block else torch.where(bf == 1, M_DONE, M_HEADER),
+            M_ERROR,
         )
         mode[s] = torch.where(
             st_, stored_mode, torch.where(btype == 1, M_TOKENS, M_ERROR)
@@ -260,8 +285,12 @@ def tokenize_static_plain(rows: torch.Tensor, end_bits: torch.Tensor,
         if s.numel() == 0:
             return
         block_pass(st, s, _static_plane(ext[s], pos[s], end[s], pwin), tok_cap)
+        if not eob_ends:  # an end-of-block ends the lane in a final block only
+            m = mode[s]
+            mode[s] = torch.where((m == M_DONE) & (bfinal[s] == 0), M_HEADER, m)
 
-    header(active())  # the first header, then the block loop
+    if not later:
+        header(active())  # the first header, then the block loop
     while True:
         live = active()
         if not bool(live.any()):
@@ -272,22 +301,38 @@ def tokenize_static_plain(rows: torch.Tensor, end_bits: torch.Tensor,
 
 
 def tokenize_static_batch(rows: torch.Tensor, end_bits: torch.Tensor,
-                          tok_cap: int, pwin: int):
+                          tok_cap: int, pwin: int, stop_at_eob: bool = True,
+                          one_block: bool = False, resume=None,
+                          later: bool = False):
     """Tokenize rows uint8[B, M] up to end_bits int32[B].
 
     Returns (tk, ta, tb, ntok, out_total, end_pos, err), see the module
     docstring.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
+    the kernel, which appends to the token buffers of ``resume`` in place."""
     if rows.device.type == "cpu":
-        return tokenize_static_plain(rows, end_bits, tok_cap, pwin)
+        return tokenize_static_plain(rows, end_bits, tok_cap, pwin,
+                                     stop_at_eob, one_block, resume, later)
     if rows.dtype != torch.uint8 or end_bits.dtype != torch.int32:
         raise ValueError("tokenize_static_batch: expects uint8 rows, "
                          "int32 end_bits")
     build.require_cuda("tokenize_static_batch", rows, end_bits)
     B, M = rows.shape
     dev = rows.device
-    tk, ta, tb = (torch.zeros(B, tok_cap, dtype=torch.int32, device=dev)
-                  for _ in range(3))
+    if resume is None:
+        tk, ta, tb = (torch.zeros(B, tok_cap, dtype=torch.int32, device=dev)
+                      for _ in range(3))
+        state_ptr = None
+    else:
+        tk, ta, tb, state = resume
+        build.require_cuda("tokenize_static_batch", tk, ta, tb, state)
+        if any(t.dtype != torch.int32 for t in resume) or any(
+            t.shape != (B, tok_cap) for t in (tk, ta, tb)
+        ) or state.shape != (B, 3):
+            raise ValueError("tokenize_static_batch: resume expects int32 "
+                             "[B, tok_cap] tokens and a [B, 3] state")
+        state_ptr = state.data_ptr()
+    flags = ((0 if stop_at_eob else F_GO_ON) | (F_ONE_BLOCK if one_block else 0)
+             | (F_LATER if later else 0))
     ntok, out_total, end_pos, err = (
         torch.empty(B, dtype=torch.int32, device=dev) for _ in range(4)
     )
@@ -296,8 +341,8 @@ def tokenize_static_batch(rows: torch.Tensor, end_bits: torch.Tensor,
     code = build.library().tokenize_static_launch(
         rows.data_ptr(), end_bits.data_ptr(), tk.data_ptr(), ta.data_ptr(),
         tb.data_ptr(), ntok.data_ptr(), out_total.data_ptr(),
-        end_pos.data_ptr(), err.data_ptr(), B, M, tok_cap, pwin,
-        build.stream_handle(dev),
+        end_pos.data_ptr(), err.data_ptr(), state_ptr, flags, B, M, tok_cap,
+        pwin, build.stream_handle(dev),
     )
     build.check(code, "tokenize_static")
     tokenize_static_batch.launches += 1

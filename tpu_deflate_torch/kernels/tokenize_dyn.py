@@ -21,6 +21,8 @@ tokens and end_pos = starts[b].  Outputs are those of
 ``tpu_deflate.ops.decode.tokenize(static_only=False, stop_at_eob=True)``
 on each lane, decoded in passes of ``pwin`` bit positions with the same
 error precedence (ERR_OVERFLOW, ERR_DIST, ERR_BAD_CODE within a pass).
+``into`` = (tk, ta, tb) int32[B, tok_cap] holds the lane's earlier tokens;
+the block's tokens are added to them (the kernel writes them in place).
 """
 
 from __future__ import annotations
@@ -143,7 +145,7 @@ def _dyn_plane(rows, base, end, pwin: int, tab, lit_sym, dist_sym):
 def tokenize_dyn_plain(rows: torch.Tensor, end_bits: torch.Tensor,
                        tab: torch.Tensor, starts: torch.Tensor,
                        status: torch.Tensor, tok0: torch.Tensor,
-                       tok_cap: int, pwin: int):
+                       tok_cap: int, pwin: int, into=None):
     """Plain version: the JAX package's block passes, vectorized over
     lanes; each pass decodes a candidate under the lane's tables at every
     bit position of its window and finds the true symbol starts with
@@ -156,6 +158,9 @@ def tokenize_dyn_plain(rows: torch.Tensor, end_bits: torch.Tensor,
     status = status.to(i64)
     lit_sym, dist_sym = rank_symbols(tab)
     st = new_lanes(B, tok_cap, dev)
+    if into is not None:
+        for k, buf in zip(("tk", "ta", "tb"), into):
+            st[k][:, :tok_cap] = buf
     walk = status < 0
     st["pos"] = starts.to(i64).clone()
     st["tp"] = tok0.to(i64).clone()
@@ -181,7 +186,7 @@ def tokenize_dyn_plain(rows: torch.Tensor, end_bits: torch.Tensor,
 def tokenize_dyn_batch(rows: torch.Tensor, end_bits: torch.Tensor,
                        tab: torch.Tensor, starts: torch.Tensor,
                        status: torch.Tensor, tok0: torch.Tensor,
-                       tok_cap: int, pwin: int):
+                       tok_cap: int, pwin: int, into=None):
     """Tokenize rows uint8[B, M] up to end_bits int32[B] under the tables
     tab int32[B, TAB_W], from starts int32[B], for the lanes whose status
     int32[B] is negative, after tok0 int32[B] earlier tokens.
@@ -191,7 +196,7 @@ def tokenize_dyn_batch(rows: torch.Tensor, end_bits: torch.Tensor,
     tensors launch the kernel."""
     if rows.device.type == "cpu":
         return tokenize_dyn_plain(rows, end_bits, tab, starts, status,
-                                  tok0, tok_cap, pwin)
+                                  tok0, tok_cap, pwin, into)
     for name, x, dt in (("rows", rows, torch.uint8),
                         ("end_bits", end_bits, torch.int32),
                         ("tab", tab, torch.int32),
@@ -207,8 +212,16 @@ def tokenize_dyn_batch(rows: torch.Tensor, end_bits: torch.Tensor,
     if tab.shape != (B, TAB_W):
         raise ValueError(f"tokenize_dyn_batch: tab {tuple(tab.shape)}")
     dev = rows.device
-    tk, ta, tb = (torch.zeros(B, tok_cap, dtype=torch.int32, device=dev)
-                  for _ in range(3))
+    if into is None:
+        tk, ta, tb = (torch.zeros(B, tok_cap, dtype=torch.int32, device=dev)
+                      for _ in range(3))
+    else:
+        tk, ta, tb = into
+        build.require_cuda("tokenize_dyn_batch", tk, ta, tb)
+        if any(t.dtype != torch.int32 or t.shape != (B, tok_cap)
+               for t in into):
+            raise ValueError("tokenize_dyn_batch: into expects int32 "
+                             "[B, tok_cap] token buffers")
     ntok, out_total, end_pos, err = (
         torch.empty(B, dtype=torch.int32, device=dev) for _ in range(4)
     )

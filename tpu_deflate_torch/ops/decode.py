@@ -1,8 +1,12 @@
-"""Chunk-parallel decode of the indexed container: stage 1 tokenizes each
-lane's bitstream (``kernels/tokenize.py`` for stored and static blocks,
-``kernels/tokenize_dyn.py`` for one static- or dynamic-tree block from
-per-lane code tables), stage 2 expands the tokens into bytes
-(``kernels/expand3.py``).  Also the dynamic block header's parse and the
+"""The device decoder.  Stage 1 tokenizes a bitstream (``kernels/
+tokenize.py`` for stored and static blocks, ``kernels/tokenize_dyn.py`` for
+one static- or dynamic-tree block from per-lane code tables), stage 2
+expands the tokens into bytes (``kernels/expand3.py`` for rows up to 2^16
+bytes, ``kernels/expand2.py`` above, ``kernels/resolve.py`` for long rows
+with stored tokens).  ``decode_rows_batch`` decodes the indexed
+container's chunks as lanes; ``tokenize`` walks all blocks of one stream
+and ``inflate_device`` / ``zlib_decompress_device`` decode any DEFLATE or
+zlib stream with it.  Also the dynamic block header's parse and the
 reachability chase shared with the encoder's greedy parse.
 """
 
@@ -10,10 +14,16 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from tpu_deflate_torch.config import DeflateConfig
+from tpu_deflate_torch.kernels.expand2 import MAX_OUT_CAP as MAX_OUT_CAP2
+from tpu_deflate_torch.kernels.expand2 import expand_fused2
+from tpu_deflate_torch.kernels.expand3 import MAX_OUT_CAP as MAX_OUT_CAP3
 from tpu_deflate_torch.kernels.expand3 import expand_fused3
 from tpu_deflate_torch.kernels.monotone import mono_compact
+from tpu_deflate_torch.kernels.resolve import resolve_roots
 from tpu_deflate_torch.kernels.tokenize import (
     ERR_BAD_CODE,
     ERR_DIST,
@@ -35,7 +45,11 @@ from tpu_deflate_torch.kernels.tokenize_dyn import (
     rev15,
     tokenize_dyn_batch,
 )
+from tpu_deflate_torch.ops.checksum import adler32_fold, adler32_state
+from tpu_deflate_torch.ref.inflate import DeflateError
 from tpu_deflate_torch.spec import tables as T
+
+OTILE = 2048  # expand_fused2 takes rows whose length is a multiple of this
 
 ERR_NAMES = {
     ERR_METHOD: "bad block method",
@@ -115,9 +129,32 @@ def _expand_inputs(tk, ta, tp):
 
 def expand_batch(rows, tk, ta, tb, tp, out_cap: int):
     """Stage 2 over chunk lanes: token arrays -> (uint8[B, out_cap] bytes,
-    zero past each lane's total, int32[B] totals)."""
+    zero past each lane's total, int32[B] totals).
+
+    Rows up to 2^16 bytes take ``expand_fused3``, stored tokens included.
+    Above that, a batch with a live stored token, or a row length that
+    ``expand_fused2`` does not take, goes through the per-byte fields and
+    ``resolve_roots``; every other batch through ``expand_fused2``."""
     off, c1, total = _expand_inputs(tk, ta, tp)
-    return expand_fused3(rows, off, c1, tb, tp, total, out_cap), total
+    if out_cap <= MAX_OUT_CAP3:
+        return expand_fused3(rows, off, c1, tb, tp, total, out_cap), total
+    live = torch.arange(tk.shape[1], device=tk.device) < tp[:, None]
+    any_stored = bool(((tk == TK_STORED) & live).any())
+    if not any_stored and out_cap % OTILE == 0 and out_cap <= MAX_OUT_CAP2:
+        return expand_fused2(off, c1, tb, tp, total, out_cap), total
+    val, parent, in_range = _expand_fields(rows, off, c1, tb, tp, total,
+                                           out_cap)
+    root = resolve_roots(parent.to(torch.int32), val.to(torch.int32))
+    return torch.where(in_range, root, 0).to(torch.uint8), total
+
+
+def expand(data, tk, ta, tb, tp: int, out_cap: int):
+    """Single-stream stage 2: data uint8[M], tk, ta, tb int32[K] and the
+    token count -> (uint8[out_cap], total); see ``expand_batch``."""
+    tpt = torch.tensor([tp], dtype=torch.int32, device=tk.device)
+    out, total = expand_batch(data[None], tk[None], ta[None], tb[None], tpt,
+                              out_cap)
+    return out[0], int(total[0])
 
 
 def chunk_pwin(chunk: int) -> int:
@@ -281,11 +318,13 @@ def _static(name: str, dev) -> torch.Tensor:
 
 def dyn_header_params_batch(rows: torch.Tensor, ends: torch.Tensor,
                             base: torch.Tensor | None = None,
-                            out_base: torch.Tensor | None = None):
+                            out_base: torch.Tensor | None = None,
+                            first: bool | None = None):
     """Parse the block header at bit base[b] (default 0, the first block)
     of each lane of rows uint8[B, M] with end bits ends int32[B];
     out_base[B] counts the lane's output bytes before that block (default
-    0) and goes into the table.
+    0) and goes into the table.  ``first`` says whether that header is the
+    lane's first (default: where base is 0).
 
     Returns the dict of ``tpu_deflate.ops.decode.dyn_header_params_batch``
     (which parses bit 0) as int32: ok (a static block, or a dynamic one
@@ -328,7 +367,8 @@ def dyn_header_params_batch(rows: torch.Tensor, ends: torch.Tensor,
                                dyn_dist)
     dyn_start = pos0 + end_next
     start = torch.where(btype == 1, base + 3, dyn_start)
-    first = base == 0
+    first = base == 0 if first is None else torch.full_like(base, first,
+                                                            dtype=torch.bool)
     empty = first & (end <= 3)
     start = torch.where(empty, 0, start)
     tab, min_len, trees_ok = pack_block_tab(lit_lengths, dist_lengths, start,
@@ -417,3 +457,170 @@ def decode_rows_batch(rows: torch.Tensor, ends: torch.Tensor, out_cap: int,
         rows, ends, tok_cap, chunk_pwin(out_cap), static_only)
     out, total = expand_batch(rows, tk, ta, tb, tp, out_cap)
     return out, total, err
+
+
+# ---------------------------------------------------------------------------
+# One stream of many blocks
+# ---------------------------------------------------------------------------
+
+
+def tokenize(data: torch.Tensor, start_bit: int, tok_cap: int,
+             end_bit: int | None = None, pwin: int = 1 << 18,
+             static_only: bool = False, one_block: bool = False):
+    """Stage 1 of a whole stream: all blocks of data uint8[M] from
+    start_bit up to the final block -> (tk, ta, tb int32[tok_cap], tp,
+    out_total, end_pos, err), the last four Python ints; the result of
+    ``tpu_deflate.ops.decode.tokenize(stop_at_eob=False)`` with the same
+    ``pwin``, ``static_only`` (a dynamic block is ERR_DYNAMIC) and
+    ``one_block`` (the first block of any type ends the stream).
+
+    The block loop runs on the host, over the two tokenizer kernels: the
+    static kernel walks stored and static blocks until the stream ends or a
+    dynamic header stops it; that header is parsed on the device and the
+    dynamic kernel decodes its block into the same token buffers, with
+    distances bounded by all output so far.  After each kernel the host
+    reads the lane's four counters, and it reads block types from its own
+    copy of the stream."""
+    dev = data.device
+    M = data.shape[0]
+    nbits = 8 * M
+    end = nbits if end_bit is None else int(end_bit)
+    host = data.cpu().numpy()
+    rows = data[None]
+    ends = torch.tensor([end], dtype=torch.int32, device=dev)
+    tk, ta, tb = (torch.zeros(1, tok_cap, dtype=torch.int32, device=dev)
+                  for _ in range(3))
+    pos, tp, total, err = int(start_bit), 0, 0, ERR_OK
+    first = True
+
+    def counters(res):
+        return (int(x) for x in torch.cat(res[3:7]).tolist())
+
+    while True:
+        if not (pos <= nbits and pos < end and tp < tok_cap - 1):
+            if pos < end:  # stopped short of the end, not at a block's edge
+                err = ERR_OVERFLOW if tp >= tok_cap - 1 else ERR_INPUT
+            break
+        byte = pos >> 3
+        hdr = (int.from_bytes(host[byte : byte + 2].tobytes(), "little")
+               >> (pos & 7))
+        state = torch.tensor([[pos, tp, total]], dtype=torch.int32, device=dev)
+        if (hdr >> 1) & 3 == 2 and not static_only:
+            prep = dyn_header_params_batch(rows, ends, state[:, 0], state[:, 2],
+                                           first)
+            _coded, starts, status = dyn_lanes(prep)
+            res = tokenize_dyn_batch(rows, ends, prep["tab"], starts, status,
+                                     state[:, 1].contiguous(), tok_cap, pwin,
+                                     into=(tk, ta, tb))
+            tk, ta, tb = res[:3]
+            tp, total, pos, err = counters(res)
+            if err != ERR_OK or hdr & 1 or one_block:
+                break
+        else:
+            res = tokenize_static_batch(
+                rows, ends, tok_cap, pwin, stop_at_eob=False,
+                one_block=one_block, resume=(tk, ta, tb, state),
+                later=not first)
+            tk, ta, tb = res[:3]
+            tp, total, pos, err = counters(res)
+            if err != ERR_DYNAMIC or static_only:
+                break
+            err = ERR_OK  # the dynamic block at pos is decoded next
+        first = False
+    return tk[0], ta[0], tb[0], tp, total, pos, err
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << int(np.ceil(np.log2(max(n, 2))))
+
+
+def _pick_pwin(nbytes: int) -> int:
+    """Bit positions per tokenizer pass for a stream of nbytes: the power
+    of two that covers it, at most 2^17 (the JAX package's rule, which
+    fixes where its passes split and so which error a pass reports)."""
+    return min(_pow2_at_least(8 * max(nbytes, 64)), 1 << 17)
+
+
+def inflate_device(data, start_bit: int = 0, out_cap: int | None = None,
+                   static_only: bool = False, one_block: bool = False,
+                   device="cuda"):
+    """Inflate a raw DEFLATE stream (bytes or a uint8 array) on ``device``
+    from start_bit on.  Returns (uint8 numpy array, output length, end
+    bit).  The token capacity starts at four bytes of output per byte of
+    input and doubles while the tokenizer reports ERR_OVERFLOW.
+    ``static_only`` refuses dynamic-tree blocks; ``one_block`` stops after
+    the first block.  Raises DeflateError on a corrupt stream.
+
+    The stream is followed by zero bytes up to a power of two, as in the
+    JAX package, and decoding is bounded by that length: a stream cut
+    short decodes on into the zeros, and the error it reports is found
+    there."""
+    # ops.foreign imports this module, so its expansion is looked up here
+    from tpu_deflate_torch.ops.foreign import SEG, expand_segments
+
+    raw = np.frombuffer(bytes(data), dtype=np.uint8)
+    m = len(raw)
+    m_pad = max(1 << 12, _pow2_at_least(m))
+    arr = torch.from_numpy(np.pad(raw, (0, m_pad - m))).to(device)
+    cap = out_cap or max(1 << 12, _pow2_at_least(4 * m))
+    pwin = _pick_pwin(m_pad)
+    while True:
+        tk, ta, tb, tp, total, pos, err = tokenize(
+            arr, start_bit, cap + 16, pwin=pwin, static_only=static_only,
+            one_block=one_block)
+        if err == ERR_OVERFLOW or (err == ERR_OK and total > cap):
+            cap *= 2
+            if cap > 1 << 31:
+                raise ValueError("output too large")
+            continue
+        if err == ERR_DYNAMIC:
+            raise DeflateError(
+                "dynamic-Huffman block rejected: decoder compiled with "
+                "dynamic=False/low_lut (reference DYNAMIC flag, "
+                "deflate.py:25)"
+            )
+        if err != ERR_OK:
+            raise DeflateError(
+                f"corrupt stream: {ERR_NAMES.get(err, f'error code {err}')}"
+            )
+        live = max(tp, 1)  # the expanders index a row of at least one slot
+        tk, ta, tb = tk[:live], ta[:live], tb[:live]
+        if total <= SEG + 256:
+            out, _ = expand(arr, tk, ta, tb, tp,
+                            max(1 << 12, _pow2_at_least(total)))
+        else:
+            out = expand_segments(arr, tk, ta, tb, total)
+        return out.cpu().numpy(), total, pos
+
+
+def zlib_decompress_device(data: bytes, config: DeflateConfig = DeflateConfig(),
+                           device="cuda") -> bytes:
+    """RFC 1950 unwrap, inflate on ``device``, Adler-32 check.
+    ``config.dynamic=False`` or ``low_lut`` refuse dynamic-tree blocks,
+    ``one_block`` stops after the first block."""
+    if len(data) < 6:
+        raise DeflateError("zlib stream too short")
+    cmf, flg = data[0], data[1]
+    if cmf & 0x0F != 8 or (cmf << 8 | flg) % 31 != 0:
+        raise DeflateError("bad zlib header")
+    out, total, end_bit = inflate_device(
+        data, start_bit=16, static_only=config.low_lut or not config.dynamic,
+        one_block=config.one_block, device=device,
+    )
+    trailer_at = (end_bit + 7) // 8
+    expect = int.from_bytes(data[trailer_at : trailer_at + 4], "big")
+    got = _adler32(torch.from_numpy(out[:total]).to(device))
+    if got != expect:
+        raise DeflateError(f"Adler-32 mismatch {got:#x} != {expect:#x}")
+    return out[:total].tobytes()
+
+
+def _adler32(data: torch.Tensor) -> int:
+    """Adler-32 of data uint8[n], as 64 KiB chunk states folded in order."""
+    chunk = 1 << 16
+    n = data.shape[0]
+    nchunks = max(1, -(-n // chunk))
+    rows = torch.nn.functional.pad(data, (0, nchunks * chunk - n))
+    lens = (n - chunk * torch.arange(nchunks, device=data.device)).clamp(0, chunk)
+    a, b = adler32_state(rows.reshape(nchunks, chunk), lens)
+    return adler32_fold(a, b, lens)
