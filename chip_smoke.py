@@ -15,7 +15,8 @@ Phases, each of which raises on failure:
                both and of the one PyTorch call that computes the same
                function, where there is one; the least time the card
                could take, from the bytes and operations of this run's
-               inputs
+               inputs, and for the two serial tokenizers also the longest
+               lane's chain of dependent symbol decodes
   4. main    — 8 MiB of tests/data/corpus.bin.gz through compress_indexed
                and decompress_indexed with DEFAULT; stock zlib checks the
                stream; every kernel must have launched
@@ -29,17 +30,22 @@ Phases, each of which raises on failure:
                short-code lanes, and lanes of a stored block followed by a
                dynamic one
   7. stream  — decompress of one zlib stream, as one lane: zlib -6 of the
-               8 MiB, the stored-mix input at levels 6 and 0, the port's
-               own static stream (also with dynamic=False) and dynamic
-               stream without their index, and a corrupt stream, which
-               must raise DeflateError; where the time of the -6 stream
-               goes
+               8 MiB, then the stored-mix input at level 6, each a counted
+               run of its own; outside the counts the stored-mix input at
+               level 0, the port's own static stream (also with
+               dynamic=False) and dynamic stream without their index, and
+               a corrupt stream, which must raise DeflateError; where the
+               time of the -6 stream goes
   8. long rows — the 8 MiB as 8 chunks of 1 MiB through compress_indexed
-               and decompress_indexed; zlib reads the stream
-Phase 3 also checks the dynamic path's two kernels on its 128 lanes.  The
-line before the last is {"kernels": [...]}, each kernel's launches counted
-on its own path (4, 6, or 7 and 8 together); the last line is {"ok": true,
-"device": {...}}.
+               and decompress_indexed, a counted run; zlib reads the
+               stream; each kernel call of that run again, on the same
+               arguments, against its plain version
+Phase 3 also checks the dynamic path's two kernels on its 128 lanes.
+Every launch count is set to 0 just before each counted run (phases 4 and
+6, the two of 7, and 8) and read just after it.  The line before the last
+is {"kernels": [...]}: "launches_by_path" holds each kernel's count in
+each of those runs and "launches" the count on the path that brought the
+kernel in (OWN_PATH); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -72,6 +78,19 @@ PIN_DYNAMIC = (3695814,
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 SYMBOL_OPS = 32  # integer operations to decode one symbol, about
+# a serial tokenizer's second bound: a symbol starts where the one before
+# ended, so a lane is a chain of dependent decodes, each at least one read
+# of shared memory (about 20 cycles) at the data sheet's boost clock
+SM_HZ = 1.98e9
+STEP_CYCLES = 20
+
+# the counted run whose count is a kernel's "launches"
+OWN_PATH = {
+    "match_bitplane_batch": "static", "mono_scatter_add": "static",
+    "tokenize_static_batch": "static", "expand_fused3": "static",
+    "tokenize_dyn_batch": "dynamic", "mono_compact": "dynamic",
+    "expand_fused2": "stream", "resolve_roots": "stream_stored_mix",
+}
 
 
 def nbytes(*tensors) -> int:
@@ -177,9 +196,9 @@ def capture(module, name: str, calls: list):
     calls; returns the original, to be put back."""
     fn = getattr(module, name)
 
-    def wrapper(*args):
+    def wrapper(*args, **kw):
         calls.append(args)
-        return fn(*args)
+        return fn(*args, **kw)
 
     setattr(module, name, wrapper)
     return fn
@@ -222,6 +241,7 @@ def main() -> None:
     )
     from tpu_deflate_torch.ops import decode as D
     from tpu_deflate_torch.ops import encode as E
+    from tpu_deflate_torch.ops import expand as X
     from tpu_deflate_torch.ops import foreign as F
 
     # ---- 1. device ------------------------------------------------------
@@ -259,7 +279,7 @@ def main() -> None:
     ends = 8 * out_lens
     tok_cap, pwin = chunk + 16, D.chunk_pwin(chunk)
     tk, ta, tb, tp, *_ = tokenize_static_batch(rows, ends, tok_cap, pwin)
-    off, c1, total = D._expand_inputs(tk, ta, tp)
+    off, c1, total = X._expand_inputs(tk, ta, tp)
 
     # the dynamic path's lanes: the same chunks with dynamic trees, their
     # header parse, and the code-length paint's inputs inside it
@@ -285,11 +305,11 @@ def main() -> None:
     mixed = data[: 1 << 20] + bytes(noise.numpy()) + data[1 << 20 : 2 << 20]
     zmix6 = zlib.compress(mixed, 6)
     segs, chains = [], []
-    orig2 = capture(D, "expand_fused2", segs)
-    origr = capture(D, "resolve_roots", chains)
+    orig2 = capture(X, "expand_fused2", segs)
+    origr = capture(X, "resolve_roots", chains)
     require(decompress(zs6, device=dev) == data, "zlib -6 stream did not decode")
     require(decompress(zmix6, device=dev) == mixed, "stored-mix -6 did not decode")
-    D.expand_fused2, D.resolve_roots = orig2, origr
+    X.expand_fused2, X.resolve_roots = orig2, origr
     require(len(segs) >= 16 and len(chains) >= 1,
             f"{len(segs)} expand_fused2 and {len(chains)} resolve_roots calls")
     seg = segs[1]  # a full segment behind a 32 KiB window of real output
@@ -361,6 +381,13 @@ def main() -> None:
                     f"{kname}: the library call differs from the kernel")
             library_ms = cuda_ms(library, reps=10)
         bound_ms, bound_by = bound(*work(args, got))
+        serial_ms = None
+        if work in (work_tokenize, work_tokenize_dyn):
+            steps = int(got[3].max())  # the longest lane's tokens
+            serial_ms = steps * STEP_CYCLES / SM_HZ * 1e3
+            log(f"kernel {kname}: longest lane {steps} tokens, "
+                f"{ms / steps * 1e6:.1f} ns a token; serial bound "
+                f"{serial_ms:.5f} ms at {STEP_CYCLES} cycles a token")
         lanes = got[0].shape[0]
         log(f"kernel {kname}: equal to plain on {lanes} lanes; {ms:.3f} ms "
             f"(plain {plain_ms:.3f} ms, library call "
@@ -370,7 +397,8 @@ def main() -> None:
             name=kname, route="cuda", source=f"tpu_deflate_torch/csrc/{src}",
             replaces=replaces, fn=kern, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library_ms,
+            library_ms=library_ms, serial_bound_ms=serial_ms,
+            launches_by_path={},
         ))
 
     # the two new kernels again where trouble is likely: a chain as deep as
@@ -401,7 +429,7 @@ def main() -> None:
     ta2[1, n_lit : n_lit + n_far] = far_len
     tb2[1, n_lit : n_lit + n_far] = torch.randint(1, 32769, (n_far,), generator=rng)
     tp2 = torch.tensor([1 + run // 258, n_lit + n_far], dtype=torch.int32)
-    off2, c12, total2 = D._expand_inputs(tk2.to(dev), ta2.to(dev), tp2.to(dev))
+    off2, c12, total2 = X._expand_inputs(tk2.to(dev), ta2.to(dev), tp2.to(dev))
     args2 = (off2, c12, tb2.to(dev), tp2.to(dev), total2, row_cap)
     require(int(total2[0]) == run and int(total2[1]) <= row_cap, "synthetic lanes")
     require(torch.equal(expand_fused2(*args2), expand_fused2_plain(*args2)),
@@ -413,27 +441,42 @@ def main() -> None:
         f"matches at distances to 32768 equal to plain, {run_ms:.3f} ms "
         f"on {name}, {smi}")
 
+    def counted(path: str, drive, must):
+        """One counted run of a main path: every kernel's count is set to
+        0 just before drive() and read just after; the kernels named in
+        must have to have launched.  Returns (drive's result, counts)."""
+        for r in results:
+            r["fn"].launches = 0
+        out = drive()
+        counts = {r["name"]: r["fn"].launches for r in results}
+        for r in results:
+            r["launches_by_path"][path] = counts[r["name"]]
+        for kname in must:
+            require(counts[kname] > 0, f"{kname} never launched on the "
+                    f"{path} path; counts {counts}")
+        return out, counts
+
+    def round_trip(rcfg):
+        """(stream, index, bytes back, encode seconds, decode seconds)."""
+        t0 = time.perf_counter()
+        zs, zindex = compress_indexed(data, rcfg, device=dev)
+        t1 = time.perf_counter()
+        zback = decompress_indexed(zs, zindex, rcfg, device=dev)
+        return zs, zindex, zback, t1 - t0, time.perf_counter() - t1
+
     # ---- 4. the main path -----------------------------------------------
-    static_path = results[:4]
-    for r in results:
-        r["fn"].launches = 0
-    t0 = time.perf_counter()
-    stream, index = compress_indexed(data, cfg, device=dev)
-    t1 = time.perf_counter()
-    back = decompress_indexed(stream, index, cfg, device=dev)
-    t2 = time.perf_counter()
-    for r in static_path:
-        r["launches"] = r["fn"].launches
+    (stream, index, back, enc_s, dec_s), counts = counted(
+        "static", lambda: round_trip(cfg),
+        ("match_bitplane_batch", "mono_scatter_add", "tokenize_static_batch",
+         "expand_fused3"))
     require(zlib.decompress(stream) == data, "zlib rejects the port's stream")
     require(back == data, "decompress_indexed did not return the input")
     require_pinned(stream, PIN_STATIC, "DEFAULT")
-    for r in static_path:
-        require(r["launches"] > 0, f"{r['name']} never launched on the main path")
     log(f"main path: {len(data)} B -> {len(stream)} B "
         f"(ratio {len(stream) / len(data):.4f}), zlib verified, equal to "
-        f"the JAX package's stream; "
-        f"compress_indexed {len(data) / (t1 - t0) / 1e9:.4f} GB/s, "
-        f"decompress_indexed {len(data) / (t2 - t1) / 1e9:.4f} GB/s "
+        f"the JAX package's stream; launches {counts}; "
+        f"compress_indexed {len(data) / enc_s / 1e9:.4f} GB/s, "
+        f"decompress_indexed {len(data) / dec_s / 1e9:.4f} GB/s "
         f"(first call, host clock) on {name}, {smi}")
     enc_ms = cuda_ms(lambda: E.encode_blocks_batch(chunks, lens, finals, cfg), 5)
     dec_ms = cuda_ms(
@@ -459,28 +502,18 @@ def main() -> None:
     log(f"stored lanes: {stored} of {len(index2)} lanes stored, round trip ok")
 
     # ---- 6. dynamic trees -----------------------------------------------
-    dyn_path = ("match_bitplane_batch", "mono_scatter_add", "mono_compact",
-                "tokenize_dyn_batch", "expand_fused3")
-    for r in results:
-        r["fn"].launches = 0
-    t0 = time.perf_counter()
-    dstream, dindex = compress_indexed(data, dcfg, device=dev)
-    t1 = time.perf_counter()
-    dback = decompress_indexed(dstream, dindex, dcfg, device=dev)
-    t2 = time.perf_counter()
-    counts = {r["name"]: r["fn"].launches for r in results}
-    for r in results[4:6]:
-        r["launches"] = counts[r["name"]]
+    (dstream, dindex, dback, enc_s, dec_s), counts = counted(
+        "dynamic", lambda: round_trip(dcfg),
+        ("match_bitplane_batch", "mono_scatter_add", "mono_compact",
+         "tokenize_dyn_batch", "expand_fused3"))
     require(zlib.decompress(dstream) == data, "zlib rejects the dynamic stream")
     require(dback == data, "the dynamic stream did not round-trip")
     require_pinned(dstream, PIN_DYNAMIC, "dynamic")
-    for kname in dyn_path:
-        require(counts[kname] > 0, f"{kname} never launched on the dynamic path")
     log(f"dynamic path: {len(data)} B -> {len(dstream)} B "
         f"(ratio {len(dstream) / len(data):.4f}), zlib verified, equal to "
         f"the JAX package's stream; launches {counts}; "
-        f"compress_indexed {len(data) / (t1 - t0) / 1e9:.4f} GB/s, "
-        f"decompress_indexed {len(data) / (t2 - t1) / 1e9:.4f} GB/s "
+        f"compress_indexed {len(data) / enc_s / 1e9:.4f} GB/s, "
+        f"decompress_indexed {len(data) / dec_s / 1e9:.4f} GB/s "
         f"(first call, host clock) on {name}, {smi}")
     denc_ms = cuda_ms(lambda: E.encode_blocks_batch(chunks, lens, finals, dcfg), 5)
     ddec_ms = cuda_ms(lambda: D.decode_rows_batch(
@@ -551,15 +584,26 @@ def main() -> None:
     log(f"stored then dynamic: {len(lanes)} lanes equal to zlib")
 
     # ---- 7. one zlib stream, one lane -------------------------------------
-    for r in results:
-        r["fn"].launches = 0
-    t0 = time.perf_counter()
-    back = decompress(zs6, device=dev)
-    stream_s = time.perf_counter() - t0
+    def one_stream(zs):
+        t0 = time.perf_counter()
+        out = decompress(zs, device=dev)
+        return out, time.perf_counter() - t0
+
+    (back, stream_s), counts = counted(
+        "stream", lambda: one_stream(zs6),
+        ("mono_compact", "tokenize_dyn_batch", "expand_fused2"))
     require(back == data, "decompress(zlib -6 of 8 MiB) did not return the input")
-    blocks = tokenize_dyn_batch.launches
+    blocks = counts["tokenize_dyn_batch"]
+    log(f"single stream, zlib -6: launches {counts}")
+    # stored tokens in a long stream: its segments take the resolve route
+    (back, mix_s), counts = counted(
+        "stream_stored_mix", lambda: one_stream(zmix6),
+        ("mono_compact", "tokenize_static_batch", "tokenize_dyn_batch",
+         "resolve_roots", "expand_fused2"))
+    require(back == mixed, "decompress(stored-mix -6) did not return the input")
+    log(f"single stream, stored-mix -6: {len(zmix6)} B -> {len(mixed)} B in "
+        f"{mix_s:.3f} s (host clock); launches {counts} on {name}, {smi}")
     for what, zs, want, zcfg in (
-        ("stored-mix -6", zmix6, mixed, DEFAULT),
         ("stored-mix -0", zlib.compress(mixed, 0), mixed, DEFAULT),
         ("own static stream", stream, data, DEFAULT),
         ("own static stream, dynamic=False", stream, data,
@@ -605,7 +649,7 @@ def main() -> None:
         return fn
 
     staged = [(D, "tokenize"), (D, "dyn_header_params_batch"),
-              (D, "tokenize_dyn_batch"), (F, "expand_segments"),
+              (D, "tokenize_dyn_batch"), (D, "expand_segments"),
               (F, "expand_batch")]
     originals = [timed(m, f) for m, f in staged]
     t0 = time.perf_counter()
@@ -622,24 +666,44 @@ def main() -> None:
 
     # ---- 8. long rows -----------------------------------------------------
     lcfg = DeflateConfig(chunk_size=1 << 20)
-    t0 = time.perf_counter()
-    lstream, lindex = compress_indexed(data, lcfg, device=dev)
-    t1 = time.perf_counter()
-    lback = decompress_indexed(lstream, lindex, lcfg, device=dev)
-    t2 = time.perf_counter()
-    counts = {r["name"]: r["fn"].launches for r in results}
+    long_path = [
+        (E, "match_bitplane_batch", match_bitplane_plain),
+        (E, "mono_scatter_add", mono_scatter_add_plain),
+        (D, "tokenize_static_batch", tokenize_static_plain),
+        (X, "expand_fused2", expand_fused2_plain),
+    ]
+    seen = [[] for _ in long_path]
+    originals = [capture(m, f, calls) for (m, f, _), calls in zip(long_path, seen)]
+    (lstream, lindex, lback, enc_s, dec_s), counts = counted(
+        "long_rows", lambda: round_trip(lcfg), [f for _, f, _ in long_path])
+    for (m, f, _), fn in zip(long_path, originals):
+        setattr(m, f, fn)
     require(len(lindex) == 8, f"{len(lindex)} long rows")
     require(zlib.decompress(lstream) == data, "zlib rejects the long-row stream")
     require(lback == data, "the long rows did not round-trip")
-    for r in results[6:]:
-        r["launches"] = counts[r["name"]]
-        require(r["launches"] > 0,
-                f"{r['name']} never launched in single-stream and long-row decode")
     log(f"long rows: {len(data)} B in {len(lindex)} chunks of 1 MiB -> "
-        f"{len(lstream)} B, zlib verified; compress_indexed {t1 - t0:.3f} s, "
-        f"decompress_indexed {t2 - t1:.3f} s (host clock); launches in phases "
-        f"7 and 8 {counts} on {name}, {smi}")
+        f"{len(lstream)} B, zlib verified; compress_indexed {enc_s:.3f} s, "
+        f"decompress_indexed {dec_s:.3f} s (host clock); launches {counts} "
+        f"on {name}, {smi}")
+    # each kernel call of that run again, against its plain version
+    for (_, f, plain), fn, calls in zip(long_path, originals, seen):
+        require(len(calls) >= 1, f"no call of {f} on the long rows")
+        args = calls[0]
+        require(args[0].shape[0] == 8, f"{f}: {args[0].shape[0]} lanes")
+        got, want = fn(*args), plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max_abs_err(got, want)
+        require(err == 0, f"{f} differs from its plain version on the long "
+                f"rows by {err}")
+        ms = cuda_ms(lambda: fn(*args), reps=3)
+        log(f"kernel {f} on the long rows: equal to plain on 8 lanes of "
+            f"{tuple(args[0].shape[1:])}; {ms:.3f} ms on {name}, {smi}")
+    require(seen[3][0][5] == 1 << 20, f"long-row expansion at {seen[3][0][5]}")
 
+    for r in results:
+        r["launches"] = r["launches_by_path"][OWN_PATH[r["name"]]]
+        require(r["launches"] > 0, f"{r['name']} never launched on its own path")
     for r in results:
         r.pop("fn")
     print(json.dumps({"kernels": results}), flush=True)

@@ -31,6 +31,7 @@ from tests.corpora import corpus  # noqa: E402
 from tpu_deflate.spec.bitstream import BitWriter  # noqa: E402
 from tpu_deflate_torch.kernels.expand2 import expand_fused2  # noqa: E402
 from tpu_deflate_torch.kernels.resolve import resolve_roots  # noqa: E402
+from tpu_deflate_torch.kernels.tokenize import TK_MATCH, TK_STORED  # noqa: E402
 from tpu_deflate_torch.ops.foreign import SEG  # noqa: E402
 
 CORPUS = pathlib.Path(__file__).resolve().parent / "data" / "corpus.bin.gz"
@@ -185,7 +186,7 @@ def test_expand_batch_equal(case, out_cap, with_stored):
     assert all(t[6] == 0 for t in toks)
     tk, ta, tb = (torch.stack([t[i] for t in toks]) for i in range(3))
     tp = torch.tensor([t[3] for t in toks], dtype=torch.int32)
-    assert bool((tk[1, : tp[1]] == TD.TK_STORED).any()) == with_stored
+    assert bool((tk[1, : tp[1]] == TK_STORED).any()) == with_stored
 
     out, total = TD.expand_batch(_t(rows, torch.uint8), tk, ta, tb, tp, out_cap)
     jout, jtotal = JD.expand_batch(
@@ -301,16 +302,16 @@ def test_walk_cases_cover_what_they_name(monkeypatch):
         return tk[:tp], tb[:tp], len(headers)
 
     tk, tb, dynamic = blocks(_raw(_mix(), 6))
-    assert dynamic >= 2 and bool((tk == TD.TK_MATCH).any())
-    assert bool((tk == TD.TK_STORED).any())  # the random part, between them
+    assert dynamic >= 2 and bool((tk == TK_MATCH).any())
+    assert bool((tk == TK_STORED).any())  # the random part, between them
     tk, tb, dynamic = blocks(_raw(_mix(), 0))
-    assert dynamic == 0 and int((tk == TD.TK_STORED).sum()) >= 2
+    assert dynamic == 0 and int((tk == TK_STORED).sum()) >= 2
     tk, tb, dynamic = blocks(_far())
-    assert int(tb[tk == TD.TK_MATCH].max()) > 2048
+    assert int(tb[tk == TK_MATCH].max()) > 2048
     tk, tb, dynamic = blocks(_flushed())
     assert dynamic == 4
-    assert int((tk == TD.TK_STORED).sum()) == 3  # the flushes' empty blocks
-    assert int(tb[tk == TD.TK_MATCH].max()) > 20000  # into the first block
+    assert int((tk == TK_STORED).sum()) == 3  # the flushes' empty blocks
+    assert int(tb[tk == TK_MATCH].max()) > 20000  # into the first block
 
 
 # ---------------------------------------------------------------------------

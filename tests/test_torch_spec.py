@@ -146,7 +146,8 @@ def test_adler32_fold_matches_zlib():
 def test_import_leaves_jax_out():
     code = ("import sys, tpu_deflate_torch; "
             "import tpu_deflate_torch.kernels.expand2, "
-            "tpu_deflate_torch.kernels.resolve, tpu_deflate_torch.ops.foreign; "
+            "tpu_deflate_torch.kernels.resolve, tpu_deflate_torch.ops.expand, "
+            "tpu_deflate_torch.ops.foreign; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'tpu_deflate' not in sys.modules, 'tpu_deflate imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)

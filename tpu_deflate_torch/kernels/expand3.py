@@ -23,8 +23,8 @@ MAX_OUT_CAP = 1 << 16  # the output row lives in one block's shared memory
 
 def expand_fused3_plain(rows, off, c1, tb, tp, total, out_cap: int):
     """Plain version: per-byte fields, then pointer-doubling resolution."""
-    # ops.decode imports this module, so its fields are looked up at call time
-    from tpu_deflate_torch.ops.decode import _expand_fields
+    # ops.expand imports this module, so its fields are looked up at call time
+    from tpu_deflate_torch.ops.expand import _expand_fields
 
     val, parent, in_range = _expand_fields(rows, off, c1, tb, tp, total,
                                            out_cap)

@@ -2,7 +2,7 @@
 
 Each output position points at its parent (itself for a literal or
 stored byte, the byte it copies for a match byte); the value of a
-position is the value at the root of its chain.  ``ops.decode.
+position is the value at the root of its chain.  ``ops.expand.
 expand_batch`` takes this route for rows that the expand kernels do not:
 a long row with a stored token, or a row whose length is no multiple of
 2048, as the JAX package's ``expand_batch`` sends them through

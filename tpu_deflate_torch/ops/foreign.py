@@ -6,7 +6,7 @@ tokens of about SEG output bytes: segment k holds the tokens whose
 offsets lie in [k * SEG, (k + 1) * SEG), so its output starts at a ragged
 base within 258 bytes (65535 after a stored block) of k * SEG, and a token
 that crosses a boundary belongs to the segment where it starts.  Each
-segment expands through ``ops.decode.expand_batch`` with the previous
+segment expands through ``ops.expand.expand_batch`` with the previous
 32 KiB of output prepended as literal tokens, at one fixed row length (a
 multiple of 2048 under 2^20): a segment without stored tokens launches
 ``expand_fused2`` with distances up to 32768, one with a stored token
@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from tpu_deflate_torch.ops.decode import OTILE, TK_LIT, expand_batch
+from tpu_deflate_torch.kernels.tokenize import TK_LIT
+from tpu_deflate_torch.ops.expand import OTILE, expand_batch
 
 SEG = 1 << 19  # output bytes per expansion segment
 WIN = 1 << 15  # RFC window carried between segments
