@@ -11,12 +11,14 @@ Phases, each of which raises on failure:
                bench corpus; for resolve_roots and expand_fused2 one
                segment of a single stream, taken from decompress of zlib
                streams, then long rows with a distance-1 run and
-               distances up to 32768), exact equality; CUDA-event times of
-               both and of the one PyTorch call that computes the same
-               function, where there is one; the least time the card
-               could take, from the bytes and operations of this run's
-               inputs, and for the two serial tokenizers also the longest
-               lane's chain of dependent symbol decodes
+               distances up to 32768; for the device-paced decode's three
+               kernels a header, a block's transfer maps and a block of
+               the zlib -6 stream, taken from its decompress), exact
+               equality; CUDA-event times of both and of the one PyTorch
+               call that computes the same function, where there is one;
+               the least time the card could take, from the bytes and
+               operations of this run's inputs, and for the tokenizers and
+               chases also their chain of dependent steps
   4. main    — 8 MiB of tests/data/corpus.bin.gz through compress_indexed
                and decompress_indexed with DEFAULT; stock zlib checks the
                stream; every kernel must have launched
@@ -29,23 +31,31 @@ Phases, each of which raises on failure:
                have launched; then a mixed batch of dynamic, stored and
                short-code lanes, and lanes of a stored block followed by a
                dynamic one
-  7. stream  — decompress of one zlib stream, as one lane: zlib -6 of the
-               8 MiB, then the stored-mix input at level 6, each a counted
-               run of its own; outside the counts the stored-mix input at
-               level 0, the port's own static stream (also with
-               dynamic=False) and dynamic stream without their index, and
-               a corrupt stream, which must raise DeflateError; where the
-               time of the -6 stream goes
+  7. stream  — the general pipeline of one zlib stream, as one lane
+               (ops.decode._inflate_general): zlib -6 of the 8 MiB, then
+               the stored-mix input at level 6, each a counted run of its
+               own; where the time of the -6 stream goes
+  7b. foreign — decompress of one zlib stream on the card, which takes the
+               device-paced decode (ops.foreign): zlib -6 of the 8 MiB and
+               the stored-mix input at levels 6 and 0, each a counted run
+               of its own; outside the counts the port's own static
+               stream (also with dynamic=False, which takes the general
+               pipeline) and dynamic stream without their index, a
+               Z_HUFFMAN_ONLY stream with a 1-bit literal code, which must
+               report FALLBACK and still decode, and a corrupt stream,
+               which must raise DeflateError; where the time of the -6
+               stream goes
   8. long rows — the 8 MiB as 8 chunks of 1 MiB through compress_indexed
                and decompress_indexed, a counted run; zlib reads the
                stream; each kernel call of that run again, on the same
                arguments, against its plain version
 Phase 3 also checks the dynamic path's two kernels on its 128 lanes.
 Every launch count is set to 0 just before each counted run (phases 4 and
-6, the two of 7, and 8) and read just after it.  The line before the last
-is {"kernels": [...]}: "launches_by_path" holds each kernel's count in
-each of those runs and "launches" the count on the path that brought the
-kernel in (OWN_PATH); the last line is {"ok": true, "device": {...}}.
+6, the two of 7, the three of 7b, and 8) and read just after it.  The
+line before the last is {"kernels": [...]}: "launches_by_path" holds each
+kernel's count in each of those runs and "launches" the count on the path
+that brought the kernel in (OWN_PATH); the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -90,6 +100,8 @@ OWN_PATH = {
     "tokenize_static_batch": "static", "expand_fused3": "static",
     "tokenize_dyn_batch": "dynamic", "mono_compact": "dynamic",
     "expand_fused2": "stream", "resolve_roots": "stream_stored_mix",
+    "ent_from_phi": "foreign", "visited_from_adv": "foreign",
+    "tokenize_dyn_hier": "foreign",
 }
 
 
@@ -132,6 +144,28 @@ def work_tokenize_dyn(args, outs):
     moved, ops = work_tokenize(args, outs, starts)
     # two comparison decodes (literal/length, distance) for a symbol
     return moved + nbytes(tab, starts, status, tok0), 2 * ops
+
+
+def work_hier(args, outs):
+    """The block's bits once, the tables, the tokens: the same as a serial
+    decode of it needs."""
+    _win, ends, tab, starts, _pw = args
+    _tk, _ta, _tb, ntok, _total, pos, _err = outs
+    tokens = int(ntok.sum())
+    read = int(((pos - starts + 7) // 8).clamp_min(0).sum())
+    return (read + 12 * tokens + 16 + nbytes(ends, tab, starts),
+            2 * SYMBOL_OPS * tokens)
+
+
+def work_ent(args, outs):
+    """The maps once, one composition step for each phase of each tile."""
+    phiP, p0 = args
+    return nbytes(phiP, p0, outs[0]), 64 * phiP.shape[2]
+
+
+def work_visit(args, outs):
+    """The jumps and terminators once, one step for each position."""
+    return nbytes(*args, outs[0]), outs[0].numel()
 
 
 def work_expand(tp, total, out):
@@ -218,6 +252,13 @@ def main() -> None:
         decompress_indexed,
     )
     from tpu_deflate_torch.kernels import build
+    from tpu_deflate_torch.kernels import tokenize_dyn as KD
+    from tpu_deflate_torch.kernels.chase1 import (
+        ent_from_phi,
+        ent_from_phi_plain,
+        visited_from_adv,
+        visited_from_adv_plain,
+    )
     from tpu_deflate_torch.kernels.expand2 import expand_fused2, expand_fused2_plain
     from tpu_deflate_torch.kernels.expand3 import expand_fused3, expand_fused3_plain
     from tpu_deflate_torch.kernels.match2 import (
@@ -237,12 +278,15 @@ def main() -> None:
     )
     from tpu_deflate_torch.kernels.tokenize_dyn import (
         tokenize_dyn_batch,
+        tokenize_dyn_hier,
+        tokenize_dyn_hier_plain,
         tokenize_dyn_plain,
     )
     from tpu_deflate_torch.ops import decode as D
     from tpu_deflate_torch.ops import encode as E
     from tpu_deflate_torch.ops import expand as X
     from tpu_deflate_torch.ops import foreign as F
+    from tpu_deflate_torch.ops import header as H
 
     # ---- 1. device ------------------------------------------------------
     smi = subprocess.run(
@@ -288,9 +332,9 @@ def main() -> None:
     drows, dout_lens, _ = E.encode_blocks_batch(chunks, lens, finals, dcfg)
     dends = 8 * dout_lens
     paints = []
-    orig = capture(D, "mono_compact", paints)
+    orig = capture(H, "mono_compact", paints)
     prep = D.dyn_header_params_batch(drows, dends)
-    D.mono_compact = orig
+    H.mono_compact = orig
     coded, starts, status = D.dyn_lanes(prep)
     require(bool(coded.all()), "a corpus lane is stored with dynamic trees on")
     log(f"dynamic trees on {int((prep['btype'] == 2).sum())} of {B} lanes")
@@ -304,14 +348,25 @@ def main() -> None:
     noise = torch.randint(0, 256, (256 << 10,), generator=rng, dtype=torch.uint8)
     mixed = data[: 1 << 20] + bytes(noise.numpy()) + data[1 << 20 : 2 << 20]
     zmix6 = zlib.compress(mixed, 6)
-    segs, chains = [], []
-    orig2 = capture(X, "expand_fused2", segs)
-    origr = capture(X, "resolve_roots", chains)
+    # the device-paced decode's kernels on the -6 stream: its headers'
+    # code-length chases, its blocks' transfer maps and its blocks
+    segs, chains, visits, maps, blocks_in = [], [], [], [], []
+    patched = [(X, "expand_fused2", segs), (X, "resolve_roots", chains),
+               (F, "visited_from_adv", visits), (KD, "ent_from_phi", maps),
+               (F, "tokenize_dyn_hier", blocks_in)]
+    originals = [capture(m, f, calls) for m, f, calls in patched]
     require(decompress(zs6, device=dev) == data, "zlib -6 stream did not decode")
+    n6, v6 = len(blocks_in), len(visits)
     require(decompress(zmix6, device=dev) == mixed, "stored-mix -6 did not decode")
-    X.expand_fused2, X.resolve_roots = orig2, origr
+    for (m, f, _), fn in zip(patched, originals):
+        setattr(m, f, fn)
     require(len(segs) >= 16 and len(chains) >= 1,
             f"{len(segs)} expand_fused2 and {len(chains)} resolve_roots calls")
+    require(v6 >= 10 and len(maps) == len(blocks_in) and n6 >= v6,
+            f"{v6} headers, {len(maps)} maps, {n6} blocks")
+    mid = n6 // 3  # a full block of the -6 stream
+    require(maps[mid][0].shape == (1, 16, 8192) and blocks_in[mid][4] == F.PW,
+            f"maps {tuple(maps[mid][0].shape)}, window {blocks_in[mid][4]}")
     seg = segs[1]  # a full segment behind a 32 KiB window of real output
     seg_live = seg[2][0, : int(seg[3][0])]
     require(seg[5] == F.SEG_CAP and int(seg_live.max()) > 2048,
@@ -364,7 +419,26 @@ def main() -> None:
         ("expand_fused2", "expand2.cu", "tpu_deflate/kernels/expand2.py:337",
          expand_fused2, expand_fused2_plain, seg,
          lambda a, o: work_expand(a[3], a[4], o[0]), None),
+        ("ent_from_phi", "chase1.cu", "tpu_deflate/kernels/chase1.py:91",
+         ent_from_phi, ent_from_phi_plain, maps[mid], work_ent, None),
+        ("visited_from_adv", "chase1.cu", "tpu_deflate/kernels/chase1.py:140",
+         visited_from_adv, visited_from_adv_plain, visits[mid % v6],
+         work_visit, None),
+        ("tokenize_dyn_hier", "tokenize_hier.cu",
+         "tpu_deflate/kernels/tokenize_dyn.py:465", tokenize_dyn_hier,
+         tokenize_dyn_hier_plain, blocks_in[mid], work_hier, None),
     ]
+    # each kernel's chain of dependent steps: a serial tokenizer's longest
+    # lane's tokens; log2 of a chase's tiles or positions; for the
+    # tile-parallel tokenizer a map chain in a tile (32), the composition
+    # over the tiles and a tile's walk (33)
+    serial_steps = {
+        "tokenize_static_batch": lambda a, o: int(o[3].max()),
+        "tokenize_dyn_batch": lambda a, o: int(o[3].max()),
+        "ent_from_phi": lambda a, o: a[0].shape[2].bit_length() - 1,
+        "visited_from_adv": lambda a, o: (a[0].numel() + 1).bit_length(),
+        "tokenize_dyn_hier": lambda a, o: 32 + (a[4] // 64).bit_length() - 1 + 33,
+    }
     results = []
     for kname, src, replaces, kern, plain, args, work, library in cases:
         got, want = kern(*args), plain(*args)
@@ -382,12 +456,12 @@ def main() -> None:
             library_ms = cuda_ms(library, reps=10)
         bound_ms, bound_by = bound(*work(args, got))
         serial_ms = None
-        if work in (work_tokenize, work_tokenize_dyn):
-            steps = int(got[3].max())  # the longest lane's tokens
+        if kname in serial_steps:
+            steps = serial_steps[kname](args, got)
             serial_ms = steps * STEP_CYCLES / SM_HZ * 1e3
-            log(f"kernel {kname}: longest lane {steps} tokens, "
-                f"{ms / steps * 1e6:.1f} ns a token; serial bound "
-                f"{serial_ms:.5f} ms at {STEP_CYCLES} cycles a token")
+            log(f"kernel {kname}: {steps} dependent steps, "
+                f"{ms / steps * 1e6:.1f} ns a step; serial bound "
+                f"{serial_ms:.5f} ms at {STEP_CYCLES} cycles a step")
         lanes = got[0].shape[0]
         log(f"kernel {kname}: equal to plain on {lanes} lanes; {ms:.3f} ms "
             f"(plain {plain_ms:.3f} ms, library call "
@@ -583,53 +657,33 @@ def main() -> None:
                 .tobytes() == w, f"stored-then-dynamic lane {i} differs from zlib")
     log(f"stored then dynamic: {len(lanes)} lanes equal to zlib")
 
-    # ---- 7. one zlib stream, one lane -------------------------------------
-    def one_stream(zs):
+    # ---- 7. one zlib stream, one lane, the general pipeline --------------
+    def general(zs, want):
+        """The general pipeline of decompress: the zlib stream's body from
+        bit 16, the block walk over the two serial tokenizers, then the
+        expansion; (output, host seconds)."""
         t0 = time.perf_counter()
-        out = decompress(zs, device=dev)
-        return out, time.perf_counter() - t0
+        out, total, _end = D._inflate_general(zs, start_bit=16, device=dev)
+        require(out[:total].tobytes() == want, "the general pipeline did not "
+                "return the input")
+        return time.perf_counter() - t0
 
-    (back, stream_s), counts = counted(
-        "stream", lambda: one_stream(zs6),
+    stream_s, counts = counted(
+        "stream", lambda: general(zs6, data),
         ("mono_compact", "tokenize_dyn_batch", "expand_fused2"))
-    require(back == data, "decompress(zlib -6 of 8 MiB) did not return the input")
     blocks = counts["tokenize_dyn_batch"]
-    log(f"single stream, zlib -6: launches {counts}")
+    log(f"single stream, zlib -6, general pipeline: {len(zs6)} B -> "
+        f"{len(data)} B, {blocks} dynamic blocks, {stream_s:.3f} s = "
+        f"{len(data) / stream_s / 1e9:.5f} GB/s (host clock, with transfers) "
+        f"on {name}, {smi}; launches {counts}")
     # stored tokens in a long stream: its segments take the resolve route
-    (back, mix_s), counts = counted(
-        "stream_stored_mix", lambda: one_stream(zmix6),
+    mix_s, counts = counted(
+        "stream_stored_mix", lambda: general(zmix6, mixed),
         ("mono_compact", "tokenize_static_batch", "tokenize_dyn_batch",
          "resolve_roots", "expand_fused2"))
-    require(back == mixed, "decompress(stored-mix -6) did not return the input")
-    log(f"single stream, stored-mix -6: {len(zmix6)} B -> {len(mixed)} B in "
-        f"{mix_s:.3f} s (host clock); launches {counts} on {name}, {smi}")
-    for what, zs, want, zcfg in (
-        ("stored-mix -0", zlib.compress(mixed, 0), mixed, DEFAULT),
-        ("own static stream", stream, data, DEFAULT),
-        ("own static stream, dynamic=False", stream, data,
-         DeflateConfig(dynamic=False)),
-        ("own dynamic stream", dstream, data, DEFAULT),
-    ):
-        t0 = time.perf_counter()
-        require(decompress(zs, zcfg, device=dev) == want,
-                f"decompress({what}) did not return the input")
-        log(f"single stream, {what}: {len(zs)} B -> {len(want)} B in "
-            f"{time.perf_counter() - t0:.3f} s (host clock) on {name}, {smi}")
-    try:
-        decompress(dstream, DeflateConfig(dynamic=False), device=dev)
-        require(False, "dynamic=False decoded a dynamic stream")
-    except DeflateError:
-        pass
-    broken = bytearray(zs6)
-    broken[len(broken) // 2] ^= 0x10
-    try:
-        decompress(bytes(broken), device=dev)
-        require(False, "a corrupt stream decoded")
-    except DeflateError as e:
-        log(f"single stream, corrupt: DeflateError({e})")
-    log(f"single stream, zlib -6: {len(zs6)} B -> {len(data)} B, {blocks} "
-        f"dynamic blocks, {stream_s:.3f} s = {len(data) / stream_s / 1e9:.5f} "
-        f"GB/s (host clock, with transfers and the Adler check) on {name}, {smi}")
+    log(f"single stream, stored-mix -6, general pipeline: {len(zmix6)} B -> "
+        f"{len(mixed)} B in {mix_s:.3f} s (host clock); launches {counts} on "
+        f"{name}, {smi}")
 
     # where that time goes: each stage closed by a synchronize
     spent = {}
@@ -648,21 +702,118 @@ def main() -> None:
         setattr(module, fname, wrapper)
         return fn
 
-    staged = [(D, "tokenize"), (D, "dyn_header_params_batch"),
-              (D, "tokenize_dyn_batch"), (D, "expand_segments"),
-              (F, "expand_batch")]
-    originals = [timed(m, f) for m, f in staged]
-    t0 = time.perf_counter()
-    decompress(zs6, device=dev)
-    whole = time.perf_counter() - t0
-    for (m, f), fn in zip(staged, originals):
-        setattr(m, f, fn)
-    log("single stream, zlib -6, stages (host clock, synchronized): whole "
-        f"{whole:.3f} s; walk {spent['tokenize']:.3f} s, of which header "
-        f"parse {spent['dyn_header_params_batch']:.3f} s and dynamic kernel "
-        f"{spent['tokenize_dyn_batch']:.3f} s; expansion "
+    def staged_run(staged, drive):
+        """Host seconds of drive() and of each staged function in it."""
+        spent.clear()
+        originals = [timed(m, f) for m, f in staged]
+        t0 = time.perf_counter()
+        drive()
+        whole = time.perf_counter() - t0
+        for (m, f), fn in zip(staged, originals):
+            setattr(m, f, fn)
+        return whole
+
+    whole = staged_run(
+        [(D, "tokenize"), (D, "dyn_header_params_batch"),
+         (D, "tokenize_dyn_batch"), (D, "expand_segments"), (F, "expand_batch")],
+        lambda: general(zs6, data))
+    log("single stream, zlib -6, general pipeline, stages (host clock, "
+        f"synchronized): whole {whole:.3f} s; walk {spent['tokenize']:.3f} s, "
+        f"of which header parse {spent['dyn_header_params_batch']:.3f} s and "
+        f"dynamic kernel {spent['tokenize_dyn_batch']:.3f} s; expansion "
         f"{spent['expand_segments']:.3f} s, of which expand_batch "
         f"{spent['expand_batch']:.3f} s on {name}, {smi}")
+
+    # ---- 7b. one zlib stream, the device-paced decode -----------------------
+    served = []
+    inflate_foreign = D.inflate_foreign_device
+
+    def spy_foreign(*a, **kw):
+        served.append(inflate_foreign(*a, **kw))
+        return served[-1]
+
+    D.inflate_foreign_device = spy_foreign
+
+    def foreign(zs, want, zcfg=DEFAULT):
+        """decompress on the card: (host seconds, whether the device-paced
+        decode served it)."""
+        served.clear()
+        t0 = time.perf_counter()
+        require(decompress(zs, zcfg, device=dev) == want,
+                "decompress did not return the input")
+        took = time.perf_counter() - t0
+        return took, len(served) == 1 and served[0] is not None
+
+    path = ("ent_from_phi", "visited_from_adv", "tokenize_dyn_hier",
+            "mono_compact", "expand_fused2")
+    (fs, ok), counts = counted("foreign", lambda: foreign(zs6, data), path)
+    require(ok, "the -6 stream fell back to the general pipeline")
+    require(counts["tokenize_dyn_batch"] == 0, "the serial dynamic kernel ran")
+    require(counts["visited_from_adv"] == counts["ent_from_phi"]
+            == counts["tokenize_dyn_hier"] == blocks,
+            f"not one launch of each a dynamic block ({blocks}): {counts}")
+    log(f"single stream, zlib -6, device-paced: {len(zs6)} B -> {len(data)} B, "
+        f"{blocks} dynamic blocks, {fs:.3f} s = {len(data) / fs / 1e9:.5f} "
+        f"GB/s (host clock, with transfers and the Adler check) on {name}, "
+        f"{smi}; launches {counts}")
+    for label, level in (("foreign_stored_mix", 6), ("foreign_stored_mix0", 0)):
+        zs = zmix6 if level == 6 else zlib.compress(mixed, 0)
+        (fs, ok), counts = counted(
+            label, lambda: foreign(zs, mixed),
+            ("resolve_roots",) + (path if level == 6 else ()))
+        require(ok, f"the stored-mix -{level} stream fell back")
+        log(f"single stream, stored-mix -{level}, device-paced: {len(zs)} B -> "
+            f"{len(mixed)} B in {fs:.3f} s (host clock); launches {counts} on "
+            f"{name}, {smi}")
+    for what, zs, want, zcfg, paced in (
+        ("own static stream", stream, data, DEFAULT, True),
+        ("own static stream, dynamic=False", stream, data,
+         DeflateConfig(dynamic=False), False),
+        ("own dynamic stream", dstream, data, DEFAULT, True),
+    ):
+        fs, ok = foreign(zs, want, zcfg)
+        require(ok == paced, f"{what}: device-paced {ok}, expected {paced}")
+        log(f"single stream, {what}: {len(zs)} B -> {len(want)} B in "
+            f"{fs:.3f} s (host clock, {'device-paced' if ok else 'general'}) "
+            f"on {name}, {smi}")
+    # a 1-bit literal code: the device-paced decode reports FALLBACK
+    skew = bytes(3 << 18) + data[: 1 << 18]
+    co = zlib.compressobj(9, zlib.DEFLATED, 15, 8, zlib.Z_HUFFMAN_ONLY)
+    zskew = co.compress(skew) + co.flush()
+    fs, ok = foreign(zskew, skew)
+    require(len(served) == 1 and served[0] is None,
+            "the Z_HUFFMAN_ONLY stream did not report FALLBACK")
+    log(f"single stream, Z_HUFFMAN_ONLY with a 1-bit code: FALLBACK, then the "
+        f"general pipeline, {fs:.3f} s (host clock), equal to the input")
+    try:
+        decompress(dstream, DeflateConfig(dynamic=False), device=dev)
+        require(False, "dynamic=False decoded a dynamic stream")
+    except DeflateError:
+        pass
+    broken = bytearray(zs6)
+    broken[len(broken) // 2] ^= 0x10
+    try:
+        decompress(bytes(broken), device=dev)
+        require(False, "a corrupt stream decoded")
+    except DeflateError as e:
+        log(f"single stream, corrupt: DeflateError({e})")
+    D.inflate_foreign_device = inflate_foreign
+
+    whole = staged_run(
+        [(F, "canon_params"), (F, "decode_cl_lengths"), (F, "pack_block_tab"),
+         (F, "tokenize_dyn_hier"), (F, "expand_segments"), (F, "expand")],
+        lambda: foreign(zs6, data))
+    parse = sum(spent.get(f, 0.0) for f in
+                ("canon_params", "decode_cl_lengths", "pack_block_tab"))
+    expansion = spent.get("expand_segments", 0.0) + spent.get("expand", 0.0)
+    log("single stream, zlib -6, device-paced, stages (host clock, "
+        f"synchronized): whole {whole:.3f} s; header parse {parse:.3f} s "
+        f"(code lengths {spent['decode_cl_lengths']:.3f} s); tile-parallel "
+        f"tokenizer {spent['tokenize_dyn_hier']:.3f} s; expansion "
+        f"{expansion:.3f} s; the rest (host loop, window gather, token "
+        f"appends, transfers, Adler check) "
+        f"{whole - parse - expansion - spent['tokenize_dyn_hier']:.3f} s on "
+        f"{name}, {smi}")
 
     # ---- 8. long rows -----------------------------------------------------
     lcfg = DeflateConfig(chunk_size=1 << 20)

@@ -43,6 +43,15 @@ ERR_OVERFLOW = 5
 ERR_STORED = 6
 ERR_INPUT = 7
 ERR_DYNAMIC = 8
+ERR_NAMES = {
+    ERR_METHOD: "bad block method",
+    ERR_BAD_CODE: "invalid Huffman code",
+    ERR_DIST: "back-reference distance before stream start",
+    ERR_OVERFLOW: "token capacity exceeded",
+    ERR_STORED: "malformed stored block",
+    ERR_INPUT: "truncated stream (ran past end without EOB)",
+    ERR_DYNAMIC: "dynamic-Huffman block",
+}
 
 TK_LIT = 0
 TK_MATCH = 1
@@ -150,8 +159,8 @@ def block_pass(st: dict, s: torch.Tensor, plane, tok_cap: int) -> None:
     the positions reachable from the first, and the pass ends at an
     end-of-block, a bad code, or the first symbol past the window.
     Updates st in place."""
-    # ops.decode imports this module, so its chase is looked up at call time
-    from tpu_deflate_torch.ops.decode import chase_reach
+    # ops.header imports this module, so its chase is looked up at call time
+    from tpu_deflate_torch.ops.header import chase_reach
 
     kind, adv, tav, tbv = plane
     i64 = torch.int64

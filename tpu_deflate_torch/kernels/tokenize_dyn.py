@@ -1,28 +1,46 @@
 """Decode stage 1 for one static- or dynamic-tree block per lane, from
-per-lane code tables (``csrc/tokenize_dyn.cu``).
+per-lane code tables, in two forms.
 
 The header of each lane's block is parsed beforehand
-(``ops.decode.dyn_header_params_batch``), which packs the lane's canonical
-code parameters into a table of TAB_W int32 (layout below, that of
+(``ops.decode.dyn_header_params_batch``, or the block loop of
+``ops.foreign``), which packs the lane's canonical code parameters into a
+table of TAB_W int32 (layout below, that of
 ``tpu_deflate.kernels.tokenize_dyn``) and gives the bit where its first
 symbol starts.  A symbol is decoded by comparison: its code length is the
 first L whose limit lim[L] exceeds the 15-bit MSB-first prefix, its rank
 is prefix >> (15 - L) plus rd[L], and the rank names the symbol.
 
-Inputs per lane: rows uint8[B, M], end_bits int32[B], tab int32[B,
-TAB_W], starts int32[B], status int32[B] and tok0 int32[B].  The block
-may follow earlier blocks of the lane (stored ones): tok0 tokens and
-tab[TAB_OUTBASE] output bytes came before it, its tokens take the slots
-from tok0 on, matches may reach into that output, and ntok and out_total
-count it.  A lane with status < 0 is decoded from bit starts[b]; a lane
-with status >= 0 ended in its header and reports err = status, no new
-tokens and end_pos = starts[b].  Outputs are those of
-``kernels.tokenize.tokenize_static_batch``, the result of
-``tpu_deflate.ops.decode.tokenize(static_only=False, stop_at_eob=True)``
-on each lane, decoded in passes of ``pwin`` bit positions with the same
-error precedence (ERR_OVERFLOW, ERR_DIST, ERR_BAD_CODE within a pass).
-``into`` = (tk, ta, tb) int32[B, tok_cap] holds the lane's earlier tokens;
-the block's tokens are added to them (the kernel writes them in place).
+``tokenize_dyn_batch`` (``csrc/tokenize_dyn.cu``) walks each lane's
+bitstream serially, one thread a lane.  Inputs per lane: rows uint8[B, M],
+end_bits int32[B], tab int32[B, TAB_W], starts int32[B], status int32[B]
+and tok0 int32[B].  The block may follow earlier blocks of the lane
+(stored ones): tok0 tokens and tab[TAB_OUTBASE] output bytes came before
+it, its tokens take the slots from tok0 on, matches may reach into that
+output, and ntok and out_total count it.  A lane with status < 0 is
+decoded from bit starts[b]; a lane with status >= 0 ended in its header
+and reports err = status, no new tokens and end_pos = starts[b].  Outputs
+are those of ``kernels.tokenize.tokenize_static_batch``; it is held
+against ``tpu_deflate.ops.decode.tokenize(static_only=False,
+stop_at_eob=True)`` on each lane, decoded in passes of ``pwin`` bit
+positions with the same error precedence (ERR_OVERFLOW, ERR_DIST,
+ERR_BAD_CODE within a pass).  ``into`` = (tk, ta, tb) int32[B, tok_cap]
+holds the lane's earlier tokens; the block's tokens are added to them (the
+kernel writes them in place).
+
+``tokenize_dyn_hier`` (``csrc/tokenize_hier.cu`` and
+``kernels.chase1.ent_from_phi``) decodes ONE lane tile-parallel, for the
+device-paced stream decode: a candidate symbol at every bit position of a
+``pw``-bit window, the transfer map of each 64-bit tile, the entry phase
+of each tile by composing the maps, and a walk of at most 33 visits in
+every tile at once.  It is held against ``tpu_deflate.kernels.
+tokenize_dyn.tokenize_dyn_batch(hier=True, tier=2)``: the same tokens,
+counts, end bit and error, with that kernel's capacity and its rules (a
+distance may reach tab[TAB_OUTBASE] bytes before the block; ERR_DIST, then
+ERR_OVERFLOW, then ERR_BAD_CODE for a bad symbol on the orbit, else ERR_OK
+at an end-of-block and ERR_INPUT without one).  Its inputs: every
+literal/length code at least MIN_LIT_LEN_FOREIGN bits, the first symbol
+in the first tile (starts[0] < 64), pw / 64 a power of two and a multiple
+of 128.
 """
 
 from __future__ import annotations
@@ -30,7 +48,18 @@ from __future__ import annotations
 import torch
 
 from tpu_deflate_torch.kernels import build
+from tpu_deflate_torch.kernels.chase1 import (
+    STOP,
+    TILE,
+    ent_from_phi,
+    ent_from_phi_plain,
+)
 from tpu_deflate_torch.kernels.tokenize import (
+    ERR_BAD_CODE,
+    ERR_DIST,
+    ERR_INPUT,
+    ERR_OK,
+    ERR_OVERFLOW,
     K_BAD,
     K_EOB,
     K_LIT,
@@ -55,6 +84,13 @@ TAB_DSYM8 = 145  # 8 rows: 4 x 8-bit (dsym + 1), 0 = dead rank
 # then the first symbol's bit and the shortest literal/length code
 TAB_OUTBASE = 155  # output bytes of the lane before the block
 TAB_W = 160
+
+# symbol visits per 64-bit tile in the tile-parallel form: 64 / (shortest
+# literal/length code) symbols and a terminator; the indexed container's
+# lanes need codes of 3 bits (tier 3), the stream decode 2 (tier 2)
+WLK_BY_TIER = {3: 22, 2: 33}
+MIN_LIT_LEN_FOREIGN = 2
+HIER_WLK = WLK_BY_TIER[2]
 
 
 def rank_symbols(tab: torch.Tensor):
@@ -241,3 +277,153 @@ def tokenize_dyn_batch(rows: torch.Tensor, end_bits: torch.Tensor,
 
 
 tokenize_dyn_batch.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The tile-parallel form: one lane, one block
+# ---------------------------------------------------------------------------
+
+
+def hier_shape(pw: int):
+    """(tiles T, tiles per walk chunk, token capacity) of a pw-bit window,
+    as the JAX kernel sizes them for tier 2: a tile whose chunk starts at
+    or past the end bit is not walked, and the capacity is the token rows
+    of its compaction, 128 tokens each."""
+    T = pw // TILE
+    if T % 128 or T & (T - 1) or T > 8192:
+        raise ValueError(f"tokenize_dyn_hier: pw = {pw} must be 2^k * 8192, "
+                         "at most 2^19")
+    u = T // 128
+    chunk = next(d * 128 for d in range(u, 0, -1) if u % d == 0 and d * 128 <= 640)
+    rows = max(-(-min(HIER_WLK * T, pw // 8 + 64) // 128) + 2, 40)
+    return T, chunk, rows * 128
+
+
+def _hier_maps_plain(rows: torch.Tensor, end_bits: torch.Tensor,
+                      tab: torch.Tensor, pw: int):
+    """The candidate symbol (kind, adv, ta, tb) int64[pw] at every bit of
+    the window rows[0, :pw / 8] (bytes past it read as zero) and the
+    packed transfer maps int32[1, 16, T]: entry e of tile t is the phase
+    in tile t + 1 that the chain from phase e reaches within 32 links, or
+    STOP where it ends at a terminator."""
+    T = pw // TILE
+    dev = rows.device
+    ext = torch.nn.functional.pad(rows[:1, : pw // 8].to(torch.int64),
+                                  (0, pw // 8 + 16 - min(rows.shape[1], pw // 8)))
+    lit_sym, dist_sym = rank_symbols(tab)
+    kind, adv, ta, tb = (x[0] for x in _dyn_plane(
+        ext, torch.zeros(1, dtype=torch.int64, device=dev),
+        end_bits.to(torch.int64), pw, tab, lit_sym, dist_sym))
+    q = torch.arange(pw, device=dev) % TILE
+    m0 = torch.where((kind == K_EOB) | (kind == K_BAD), 255, q + adv).reshape(T, TILE)
+    x = torch.arange(TILE, device=dev).expand(T, TILE)
+    for _ in range(32):
+        x = torch.where(x < TILE, torch.gather(m0, 1, x.clamp(max=TILE - 1)), x)
+    phi = torch.where(x >= 2 * TILE, STOP, (x - TILE) & 0xFF)
+    w = (phi.T.reshape(16, 4, T) << (8 * torch.arange(4, device=dev))[None, :, None]).sum(1)
+    phiP = (((w + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)[None]
+    return (kind, adv, ta, tb), phiP
+
+
+def _hier_walk_plain(fields, ent: torch.Tensor, end: int, out_base: int,
+                    pw: int):
+    """Walk every tile from its entry phase ent int32[1, 1, T] for at most
+    33 visits: (tk, ta, tb int32[1, tokcap], ntok, out_total, end_pos, err
+    int32[1]) with the JAX kernel's rules."""
+    kind, adv, tav, tbv = fields
+    T, chunk, tokcap = hier_shape(pw)
+    dev = kind.device
+    t = torch.arange(T, device=dev)
+    cur = torch.where(TILE * (t - t % chunk) < end, ent.reshape(T).to(torch.int64), -1)
+    seen = []  # per visit: (token, kind, ta, tb, position, adv), each [T]
+    for _ in range(HIER_WLK):
+        inb = (cur >= 0) & (cur < TILE)
+        p = TILE * t + cur.clamp(0, TILE - 1)
+        k = torch.where(inb, kind[p], -1)
+        seen.append((inb & ((k == K_LIT) | (k == K_MATCH)), k, tav[p], tbv[p], p, adv[p]))
+        term = (k == K_EOB) | (k == K_BAD)
+        cur = torch.where(inb, torch.where(term, 255, cur + adv[p]), cur)
+    tok, k, ta, tb, p, a = (torch.stack(c, 1).reshape(-1) for c in zip(*seen))
+    n = torch.where(tok, torch.where(k == K_LIT, 1, ta), 0)
+    before = torch.cumsum(n, 0) - n + out_base
+    too_far = bool((tok & (k == K_MATCH) & (tb > before)).any())
+    ntok, total = int(tok.sum()), int(n.sum())
+    bad = bool((k == K_BAD).any())
+    eob = torch.where(k == K_EOB, (p << 6) | a, -1).max()
+    eob = int(eob) if eob.numel() else -1
+    if too_far:
+        err = ERR_DIST
+    elif ntok >= tokcap - 8:
+        err = ERR_OVERFLOW
+    elif bad:
+        err = ERR_BAD_CODE
+    else:
+        err = ERR_OK if eob >= 0 else ERR_INPUT
+    end_pos = (eob >> 6) + (eob & 63) if eob >= 0 else end
+    if end <= 3:  # an empty lane
+        err, end_pos = ERR_OK, 0
+    i = tok.nonzero()[:tokcap, 0]
+    out = [torch.zeros(1, tokcap, dtype=torch.int32, device=dev) for _ in range(3)]
+    for o, v in zip(out, ((k == K_MATCH).to(torch.int64), ta, tb)):
+        o[0, : i.numel()] = v[i].to(torch.int32)
+    return (*out, *(torch.tensor([v], dtype=torch.int32, device=dev)
+                    for v in (ntok, total, end_pos, err)))
+
+
+def tokenize_dyn_hier_plain(rows: torch.Tensor, end_bits: torch.Tensor,
+                            tab: torch.Tensor, starts: torch.Tensor, pw: int):
+    """Plain version of ``tokenize_dyn_hier``: the candidate plane of
+    ``_dyn_plane``, the maps by 32 steps of every chain, the entry phases
+    by ``ent_from_phi_plain``'s composition, the walk vectorized over
+    tiles."""
+    fields, phiP = _hier_maps_plain(rows, end_bits, tab, pw)
+    ent = ent_from_phi_plain(phiP, starts.reshape(()))
+    return _hier_walk_plain(fields, ent, int(end_bits[0]),
+                           int(tab[0, TAB_OUTBASE]), pw)
+
+
+def tokenize_dyn_hier(rows: torch.Tensor, end_bits: torch.Tensor,
+                      tab: torch.Tensor, starts: torch.Tensor, pw: int):
+    """Tokenize the block of ONE lane, rows uint8[1, M] up to end_bits
+    int32[1], under tab int32[1, TAB_W], from bit starts int32[1] (< 64),
+    in a window of pw bit positions: (tk, ta, tb int32[1, tokcap], ntok,
+    out_total, end_pos, err int32[1]), tokcap from ``hier_shape``.
+
+    CPU tensors take the plain version; CUDA tensors launch the two
+    kernels of ``csrc/tokenize_hier.cu`` with ``ent_from_phi`` between
+    them."""
+    for name, x, dt, shape in (("rows", rows, torch.uint8, None),
+                               ("end_bits", end_bits, torch.int32, (1,)),
+                               ("tab", tab, torch.int32, (1, TAB_W)),
+                               ("starts", starts, torch.int32, (1,))):
+        if x.dtype != dt or (shape and tuple(x.shape) != shape):
+            raise ValueError(f"tokenize_dyn_hier: {name} {x.dtype} "
+                             f"{tuple(x.shape)}, expected {dt} {shape}")
+    if rows.dim() != 2 or rows.shape[0] != 1:
+        raise ValueError(f"tokenize_dyn_hier: rows {tuple(rows.shape)}, one lane")
+    T, chunk, tokcap = hier_shape(pw)
+    if rows.device.type == "cpu":
+        return tokenize_dyn_hier_plain(rows, end_bits, tab, starts, pw)
+    build.require_cuda("tokenize_dyn_hier", rows, end_bits, tab, starts)
+    dev = rows.device
+    lib, stream = build.library(), build.stream_handle(dev)
+    plane = torch.empty(pw, dtype=torch.int32, device=dev)
+    phiP = torch.empty(1, 16, T, dtype=torch.int32, device=dev)
+    code = lib.tokenize_hier_k1d_launch(
+        rows.data_ptr(), min(rows.shape[1], pw // 8), end_bits.data_ptr(),
+        tab.data_ptr(), plane.data_ptr(), phiP.data_ptr(), pw, stream)
+    build.check(code, "tokenize_hier_k1d")
+    ent = ent_from_phi(phiP, starts.reshape(()))
+    tk, ta, tb = (torch.zeros(1, tokcap, dtype=torch.int32, device=dev)
+                  for _ in range(3))
+    meta = torch.empty(4, dtype=torch.int32, device=dev)
+    code = lib.tokenize_hier_k3d_launch(
+        plane.data_ptr(), ent.data_ptr(), end_bits.data_ptr(), tab.data_ptr(),
+        tk.data_ptr(), ta.data_ptr(), tb.data_ptr(), meta.data_ptr(), T,
+        chunk, tokcap, stream)
+    build.check(code, "tokenize_hier_k3d")
+    tokenize_dyn_hier.launches += 1
+    return (tk, ta, tb, *meta.split(1))
+
+
+tokenize_dyn_hier.launches = 0

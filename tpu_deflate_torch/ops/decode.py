@@ -1,12 +1,13 @@
 """The device decoder.  Stage 1 tokenizes a bitstream (``kernels/
 tokenize.py`` for stored and static blocks, ``kernels/tokenize_dyn.py`` for
-one static- or dynamic-tree block from per-lane code tables), stage 2
-expands the tokens into bytes (``ops/expand.py``, and ``ops/foreign.py``
-for a long stream's segments).  ``decode_rows_batch`` decodes the indexed
-container's chunks as lanes; ``tokenize`` walks all blocks of one stream
-and ``inflate_device`` / ``zlib_decompress_device`` decode any DEFLATE or
-zlib stream with it.  Also the dynamic block header's parse and the
-reachability chase shared with the encoder's greedy parse.
+one static- or dynamic-tree block from per-lane code tables, with the
+header parse of ``ops/header.py``), stage 2 expands the tokens into bytes
+(``ops/expand.py``, and ``ops/foreign.py`` for a long stream's segments).
+``decode_rows_batch`` decodes the indexed container's chunks as lanes;
+``tokenize`` walks all blocks of one stream.  ``inflate_device`` /
+``zlib_decompress_device`` decode any DEFLATE or zlib stream: on a CUDA
+device through the device-paced decode of ``ops/foreign.py``, else, or
+where that reports FALLBACK, through ``tokenize`` and the expansion.
 """
 
 from __future__ import annotations
@@ -17,62 +18,33 @@ import numpy as np
 import torch
 
 from tpu_deflate_torch.config import DeflateConfig
-from tpu_deflate_torch.kernels.monotone import mono_compact
 from tpu_deflate_torch.kernels.tokenize import (
     ERR_BAD_CODE,
-    ERR_DIST,
     ERR_DYNAMIC,
     ERR_INPUT,
-    ERR_METHOD,
+    ERR_NAMES,
     ERR_OK,
     ERR_OVERFLOW,
-    ERR_STORED,
     bit_windows,
     tokenize_static_batch,
 )
-from tpu_deflate_torch.kernels.tokenize_dyn import (
-    TAB_W,
-    code_rank,
-    rev15,
-    tokenize_dyn_batch,
-)
+from tpu_deflate_torch.kernels.tokenize_dyn import tokenize_dyn_batch
 from tpu_deflate_torch.ops.checksum import adler32_fold, adler32_state
-from tpu_deflate_torch.ops.expand import expand, expand_batch
-from tpu_deflate_torch.ops.foreign import SEG, expand_segments
+from tpu_deflate_torch.ops.expand import expand, expand_batch, pow2_at_least
+from tpu_deflate_torch.ops.foreign import (
+    SEG,
+    expand_segments,
+    inflate_foreign_device,
+)
+from tpu_deflate_torch.ops.header import (
+    CL_WIN,
+    MAX_SYMS,
+    canon_params,
+    decode_cl_lengths,
+    pack_block_tab,
+)
 from tpu_deflate_torch.ref.inflate import DeflateError
 from tpu_deflate_torch.spec import tables as T
-
-ERR_NAMES = {
-    ERR_METHOD: "bad block method",
-    ERR_BAD_CODE: "invalid Huffman code",
-    ERR_DIST: "back-reference distance before stream start",
-    ERR_OVERFLOW: "token capacity exceeded",
-    ERR_STORED: "malformed stored block",
-    ERR_INPUT: "truncated stream (ran past end without EOB)",
-    ERR_DYNAMIC: "dynamic-Huffman block",
-}
-
-
-def chase_reach(adv: torch.Tensor, term: torch.Tensor) -> torch.Tensor:
-    """Positions reachable from index 0 under next[p] = p + adv[p].
-
-    adv: int[..., P] jumps >= 1; term: bool[..., P] chain terminators (the
-    chain stops AT a terminal position, which is still reached).  Returns
-    bool[..., P].  Pointer doubling: after round k every position within
-    2^k steps of 0 is marked."""
-    P = adv.shape[-1]
-    lead = adv.shape[:-1]
-    idx = torch.arange(P, device=adv.device, dtype=torch.int64)
-    nxt = torch.where(term, P, (idx + adv).clamp(max=P))
-    # column P is the sink for chains that end or leave the range
-    jump = torch.cat([nxt, torch.full((*lead, 1), P, dtype=torch.int64,
-                                      device=adv.device)], dim=-1)
-    reach = torch.zeros((*lead, P + 1), dtype=torch.int32, device=adv.device)
-    reach[..., 0] = 1
-    for _ in range(math.ceil(math.log2(P + 1)) + 1):
-        reach = reach.scatter_reduce(-1, jump, reach, "amax")
-        jump = torch.gather(jump, -1, jump)
-    return reach[..., :P].bool()
 
 
 def chunk_pwin(chunk: int) -> int:
@@ -81,153 +53,6 @@ def chunk_pwin(chunk: int) -> int:
     and so which error a pass reports)."""
     k = max(6, min(14, math.ceil(math.log2(max(chunk, 64))) - 2))
     return 17 << k
-
-
-# ---------------------------------------------------------------------------
-# Dynamic block header: canonical code parameters and the code lengths
-# ---------------------------------------------------------------------------
-
-MAX_SYMS = 320  # 288 literal/length + 32 distance code lengths
-CL_WIN = 4608  # bits searched for the code lengths: <= 316 lengths, each
-# op <= 7 (code-length code) + 7 (repeat extra) bits, < 4424 bits in all
-
-
-def canon_params(lengths: torch.Tensor, n_sym: int):
-    """Comparison-decode parameters of canonical codes with lengths
-    int64[B, S]: (lim, rd int64[B, 16], sym int64[B, n_sym] = the symbol
-    of each rank, -1 for a dead rank, oversubscribed bool[B]).
-
-    A code of length L has an MSB-first 15-bit prefix v with lim[L-1] <= v
-    < lim[L], lim[L] = (next_code[L] + count[L]) << (15 - L) made
-    nondecreasing, and rank (v >> (15 - L)) + rd[L], rd[L] = (codes shorter
-    than L) - next_code[L]."""
-    B, S = lengths.shape
-    dev = lengths.device
-    i64 = torch.int64
-    valid = (lengths > 0) & (lengths <= 15)
-    Lc = lengths.clamp(0, 15)
-    count = torch.zeros(B, 16, dtype=i64, device=dev).scatter_add(
-        1, Lc, valid.to(i64))
-    count[:, 0] = 0
-    next_code = torch.zeros(B, 16, dtype=i64, device=dev)
-    for L in range(1, 16):
-        next_code[:, L] = (next_code[:, L - 1] + count[:, L - 1]) << 1
-    before = torch.cumsum(count, 1) - count
-    shift = (15 - torch.arange(16, device=dev)).clamp(0, 15)
-    lim = torch.where(torch.arange(16, device=dev) > 0,
-                      (next_code + count) << shift, 0)
-    lim = torch.cummax(lim, 1).values
-    rd = before - next_code
-    kraft = torch.where(valid, 1 << (15 - Lc), 0).sum(1)
-    # rank: codes shorter, then codes of the same length at a smaller symbol
-    eq = (Lc[:, None, :] == torch.arange(1, 16, device=dev)[None, :, None]) \
-        & valid[:, None, :]
-    within = torch.where(eq, torch.cumsum(eq, 2) - eq.to(i64), 0).sum(1)
-    rank = torch.gather(before, 1, Lc) + within
-    slot = torch.where(valid & (rank < n_sym), rank, n_sym)
-    sym = torch.full((B, n_sym + 1), -1, dtype=i64, device=dev).scatter(
-        1, slot, torch.arange(S, device=dev).expand(B, S))
-    return lim, rd, sym[:, :n_sym], kraft > (1 << 15)
-
-
-def decode_cl_lengths(rows: torch.Tensor, pos0: torch.Tensor,
-                      target: torch.Tensor, cl_lim, cl_rd, cl_sym):
-    """The HLIT + HDIST code lengths of each lane's dynamic header, from
-    rows int64[B, L] (zero bytes after the data) at bit pos0 int64[B]:
-    (lengths int64[B, MAX_SYMS], end_next int64[B] = bit offset from pos0
-    of the first symbol after the header, -1 if the lengths do not end on
-    a symbol, ok bool[B]).
-
-    A code-length symbol is decoded at each of the CL_WIN positions, the
-    true ones are those reachable from the first (``chase_reach``), the
-    repeats of code 16 read the previous length by a forward fill, and
-    each op's run of lengths is painted from its start by ``mono_compact``
-    (the op starts are strictly increasing) and filled forward."""
-    B = rows.shape[0]
-    dev = rows.device
-    i64 = torch.int64
-    bits = bit_windows(rows, pos0, CL_WIN)
-    nb, nbc, rank = code_rank(rev15(bits), cl_lim, cl_rd)
-    sym = torch.gather(cl_sym, 1, rank.clamp(0, 18))
-    bad = (nb > 7) | (rank < 0) | (rank > 18) | (sym < 0)
-    x7 = (bits >> nbc) & 0x7F
-    ebits = torch.where(sym == 16, 2, torch.where(sym == 17, 3,
-                        torch.where(sym == 18, 7, 0)))
-    count = torch.where(sym < 16, 1, torch.where(
-        sym == 16, 3 + (x7 & 3),
-        torch.where(sym == 17, 3 + (x7 & 7), 11 + x7)))
-    adv = torch.where(bad, 1, nbc + ebits)
-    sym = torch.where(bad, -1, sym)
-    term = sym < 0
-    reached = chase_reach(adv, term)
-
-    pidx = torch.arange(CL_WIN, device=dev)
-    opc = torch.where(reached & ~term, count, 0)
-    cum = torch.cumsum(opc, 1)
-    cum_ex = cum - opc
-    live = reached & ~term & (cum_ex < target[:, None])
-    total = torch.where(live, cum, 0).amax(1)
-    end_next = torch.where(live & (cum == target[:, None]), pidx + adv,
-                           -1).amax(1)
-
-    # code 16 repeats the previous length: the last literal length or zero
-    # run before it, found by a running max of (position, value + 1)
-    setk = torch.where(live & (sym < 16), (pidx << 9) | (sym + 1),
-                       torch.where(live & (sym >= 17), (pidx << 9) | 1, -1))
-    fill = torch.cummax(setk, 1).values
-    bad16 = (live & (sym == 16) & (fill < 0)).any(1)
-    assign = torch.where(sym < 16, sym,
-                         torch.where(sym == 16, (fill & 0x1FF) - 1, 0))
-
-    # paint (start, value + 1) at each op's first length, +1 so that an
-    # empty slot reads 0, in two 14-bit channels
-    q = torch.where(live, ((cum_ex << 9) | (assign + 1)) + 1, 0)
-    idx = torch.where(live, cum_ex, MAX_SYMS).to(torch.int32)
-    ch = torch.stack([q & 0x3FFF, q >> 14], 1).to(torch.int32)
-    comp = mono_compact(idx, ch, MAX_SYMS).to(i64)
-    arr = comp[:, 0] + (comp[:, 1] << 14) - 1
-    farr = torch.cummax(arr, 1).values
-    sidx = torch.arange(MAX_SYMS, device=dev)
-    lengths = torch.where((sidx < target[:, None]) & (farr >= 0),
-                          (farr & 0x1FF) - 1, 0)
-    ok = (total == target) & ~bad16 & (end_next >= 0)
-    return lengths, end_next, ok
-
-
-def _pack_fields(v: torch.Tensor, per: int, bits: int) -> torch.Tensor:
-    """``per`` consecutive ``bits``-bit values of v int64[B, K] per int32
-    (two's complement), K % per == 0."""
-    B, K = v.shape
-    sh = bits * torch.arange(per, device=v.device)
-    w = (v.reshape(B, K // per, per) << sh).sum(2)
-    return ((w + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
-
-
-def pack_block_tab(lit_lengths: torch.Tensor, dist_lengths: torch.Tensor,
-                   start: torch.Tensor, out_base: torch.Tensor | None = None):
-    """Packed code tables of one block per lane, from lit_lengths int64[B,
-    288], dist_lengths int64[B, 32], the first symbol's bit start[B] and
-    the output bytes before the block out_base[B] (default none): (tab
-    int64[B, TAB_W] in the ``kernels.tokenize_dyn`` layout, min_len
-    int64[B] = the shortest literal/length code, trees_ok bool[B] =
-    neither tree oversubscribed)."""
-    B = lit_lengths.shape[0]
-    dev = lit_lengths.device
-    if out_base is None:
-        out_base = torch.zeros(B, dtype=torch.int64, device=dev)
-    llim, lrd, lsym, lover = canon_params(lit_lengths, 288)
-    dlim, drd, dsym, dover = canon_params(dist_lengths, 32)
-    min_len = torch.where(lit_lengths > 0, lit_lengths, 99).amin(1)
-    symp1 = torch.where((lsym >= 0) & (lsym <= 287), lsym + 1, 0)
-    dsymp1 = torch.where((dsym >= 0) & (dsym <= 29), dsym + 1, 0)
-    tab = torch.cat([
-        llim, lrd, dlim, drd,
-        _pack_fields(symp1 & 0xFF, 4, 8), _pack_fields(symp1 >> 8, 32, 1),
-        _pack_fields(dsymp1, 4, 8), start[:, None], min_len[:, None],
-        out_base[:, None], torch.zeros(B, 4, dtype=torch.int64, device=dev),
-    ], 1)
-    assert tab.shape[1] == TAB_W
-    return tab, min_len, ~lover & ~dover
 
 
 def _static(name: str, dev) -> torch.Tensor:
@@ -448,15 +273,11 @@ def tokenize(data: torch.Tensor, start_bit: int, tok_cap: int,
     return tk[0], ta[0], tb[0], tp, total, pos, err
 
 
-def _pow2_at_least(n: int) -> int:
-    return 1 << int(np.ceil(np.log2(max(n, 2))))
-
-
 def _pick_pwin(nbytes: int) -> int:
     """Bit positions per tokenizer pass for a stream of nbytes: the power
     of two that covers it, at most 2^17 (the JAX package's rule, which
     fixes where its passes split and so which error a pass reports)."""
-    return min(_pow2_at_least(8 * max(nbytes, 64)), 1 << 17)
+    return min(pow2_at_least(8 * max(nbytes, 64)), 1 << 17)
 
 
 def inflate_device(data, start_bit: int = 0, out_cap: int | None = None,
@@ -464,10 +285,28 @@ def inflate_device(data, start_bit: int = 0, out_cap: int | None = None,
                    device="cuda"):
     """Inflate a raw DEFLATE stream (bytes or a uint8 array) on ``device``
     from start_bit on.  Returns (uint8 numpy array, output length, end
-    bit).  The token capacity starts at four bytes of output per byte of
-    input and doubles while the tokenizer reports ERR_OVERFLOW.
-    ``static_only`` refuses dynamic-tree blocks; ``one_block`` stops after
-    the first block.  Raises DeflateError on a corrupt stream.
+    bit).  ``static_only`` refuses dynamic-tree blocks; ``one_block``
+    stops after the first block.  Raises DeflateError on a corrupt stream.
+
+    On a CUDA device, unless ``static_only`` or ``one_block`` is set, the
+    device-paced decode of ``ops.foreign`` runs first, as the JAX package
+    runs it on the TPU; a stream that it cannot serve (FALLBACK) and every
+    stream on the CPU go through the general pipeline."""
+    if not static_only and not one_block and torch.device(device).type == "cuda":
+        done = inflate_foreign_device(data, start_bit, device)
+        if done is not None:
+            return done
+    return _inflate_general(data, start_bit, out_cap, static_only, one_block,
+                            device)
+
+
+def _inflate_general(data, start_bit: int = 0, out_cap: int | None = None,
+                     static_only: bool = False, one_block: bool = False,
+                     device="cuda"):
+    """The general pipeline of ``inflate_device``: the block walk of
+    ``tokenize``, then the expansion.  The token capacity starts at four
+    bytes of output per byte of input and doubles while the tokenizer
+    reports ERR_OVERFLOW.
 
     The stream is followed by zero bytes up to a power of two, as in the
     JAX package, and decoding is bounded by that length: a stream cut
@@ -475,9 +314,9 @@ def inflate_device(data, start_bit: int = 0, out_cap: int | None = None,
     there."""
     raw = np.frombuffer(bytes(data), dtype=np.uint8)
     m = len(raw)
-    m_pad = max(1 << 12, _pow2_at_least(m))
+    m_pad = max(1 << 12, pow2_at_least(m))
     arr = torch.from_numpy(np.pad(raw, (0, m_pad - m))).to(device)
-    cap = out_cap or max(1 << 12, _pow2_at_least(4 * m))
+    cap = out_cap or max(1 << 12, pow2_at_least(4 * m))
     pwin = _pick_pwin(m_pad)
     while True:
         tk, ta, tb, tp, total, pos, err = tokenize(
@@ -502,7 +341,7 @@ def inflate_device(data, start_bit: int = 0, out_cap: int | None = None,
         tk, ta, tb = tk[:live], ta[:live], tb[:live]
         if total <= SEG + 256:
             out, _ = expand(arr, tk, ta, tb, tp,
-                            max(1 << 12, _pow2_at_least(total)))
+                            max(1 << 12, pow2_at_least(total)))
         else:
             out = expand_segments(arr, tk, ta, tb, total)
         return out.cpu().numpy(), total, pos

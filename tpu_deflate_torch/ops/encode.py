@@ -5,7 +5,7 @@ Four stages per lane, all lanes at once:
 
   1+2. match search and extension — the ``match2`` kernel;
   3.   greedy parse: the token starts are the positions reachable from 0
-       under next[i] = i + max(length[i], 1) (``ops.decode.chase_reach``);
+       under next[i] = i + max(length[i], 1) (``ops.header.chase_reach``);
   4.   emissions: each token's code plus extra bits as values and bit
        widths, bit offsets by prefix sum, then the bytes by a scatter-add
        of 16-bit channels (the ``monotone`` kernel).  With dynamic_encode
@@ -26,7 +26,7 @@ import torch
 from tpu_deflate_torch.config import DeflateConfig
 from tpu_deflate_torch.kernels.match2 import MAX_WINDOW, match_bitplane_batch
 from tpu_deflate_torch.kernels.monotone import mono_scatter_add
-from tpu_deflate_torch.ops.decode import chase_reach
+from tpu_deflate_torch.ops.header import chase_reach
 from tpu_deflate_torch.spec import tables as T
 
 _STORED_MAX = 65535

@@ -20,6 +20,10 @@ from tpu_deflate_torch.kernels.tokenize import TK_LIT, TK_MATCH, TK_STORED
 OTILE = 2048  # expand_fused2 takes rows whose length is a multiple of this
 
 
+def pow2_at_least(n: int) -> int:
+    return 1 << max(n - 1, 1).bit_length()
+
+
 def _expand_fields(rows, off, c1, tb, tp, total, out_cap: int):
     """Per output byte: (val, parent, in_range), int64 / bool[B, out_cap].
 
