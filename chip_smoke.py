@@ -15,13 +15,21 @@ Phases, each of which raises on failure:
                kernels a header, a block's transfer maps and a block of
                the zlib -6 stream, taken from its decompress), exact
                equality; CUDA-event times of both and of the one PyTorch
-               call that computes the same function, where there is one;
-               the least time the card could take, from the bytes and
-               operations of this run's inputs, and for the tokenizers and
-               chases also their chain of dependent steps
+               call that computes the same function, where there is one
+               (host-paced: back-to-back calls of the Python wrapper), and
+               the device time of the kernel and of that call (the
+               profiler's time of all they launch); the least time the
+               card could take, from the bytes and operations of this
+               run's inputs, and for the serial dynamic tokenizer and the
+               chases also their chain of dependent steps; then the static
+               tokenizer on error lanes built here (stored, empty, cut,
+               corrupt, dynamic, type 3, a distance too far, a lane over
+               a small token capacity), at passes of 1088 bits and as
+               whole streams, all seven outputs equal to plain
   4. main    — 8 MiB of tests/data/corpus.bin.gz through compress_indexed
                and decompress_indexed with DEFAULT; stock zlib checks the
-               stream; every kernel must have launched
+               stream; every kernel must have launched; the device time of
+               the decode and its split by kernel
   5. stored  — the same with 256 KiB of seeded random bytes spliced in,
                so stored lanes go through the tokenizer and the expander
   6. dynamic — the 8 MiB through compress_indexed and decompress_indexed
@@ -88,9 +96,11 @@ PIN_DYNAMIC = (3695814,
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 SYMBOL_OPS = 32  # integer operations to decode one symbol, about
-# a serial tokenizer's second bound: a symbol starts where the one before
-# ended, so a lane is a chain of dependent decodes, each at least one read
-# of shared memory (about 20 cycles) at the data sheet's boost clock
+# a serial kernel's second bound: a symbol starts where the one before
+# ended, so a serial lane is a chain of dependent decodes, each at least
+# one read of shared memory (about 20 cycles) at the data sheet's boost
+# clock.  The static tokenizer has no such chain: its blocks find the
+# symbol starts of a window in parallel, so its bound is bytes alone.
 SM_HZ = 1.98e9
 STEP_CYCLES = 20
 
@@ -210,6 +220,43 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_split(fn, reps: int) -> dict:
+    """Mean device milliseconds of fn() by kernel name, over reps calls
+    after one warm-up: the profiler's time of everything fn launches on
+    the card (kernels, copies, memsets)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3 / reps
+            split[e.name] = split.get(e.name, 0.0) + ms
+    return split
+
+
+def device_ms(fn, reps: int = 10):
+    """Mean device milliseconds of fn() (``device_split`` summed), over up
+    to three tries: a short profile sometimes comes back without its
+    kernels; None where no try saw device time."""
+    for _ in range(3):
+        total = sum(device_split(fn, reps).values())
+        if total > 0:
+            return total
+    return None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def max_abs_err(got, want) -> int:
     require(len(got) == len(want), "output arity differs")
     err = 0
@@ -223,6 +270,49 @@ def max_abs_err(got, want) -> int:
 def require_pinned(stream: bytes, pin, what: str) -> None:
     got = (len(stream), hashlib.sha256(stream).hexdigest())
     require(got == pin, f"{what} stream {got} differs from the JAX package's {pin}")
+
+
+def error_lanes(data: bytes, torch):
+    """(names, rows uint8[L, 4096], end bits int32[L]): raw DEFLATE lanes
+    built with zlib and by hand, each ending in one of the static
+    tokenizer's outcomes."""
+
+    def raw(payload, level=9, strategy=zlib.Z_DEFAULT_STRATEGY):
+        co = zlib.compressobj(level, zlib.DEFLATED, -15, 9, strategy)
+        return co.compress(payload) + co.flush()
+
+    noise = bytes(torch.randint(0, 256, (900,), dtype=torch.uint8,
+                                generator=torch.Generator().manual_seed(SEED)).numpy())
+    fixed = raw(data[:2200], strategy=zlib.Z_FIXED)
+    text = data[40000:43000]
+    lanes = [
+        ("static", fixed, None),
+        ("static_text", raw(text, strategy=zlib.Z_FIXED), None),
+        ("stored", raw(noise, 0), None),
+        ("stored_then_static",
+         b"\x00" + (5).to_bytes(2, "little") + (5 ^ 0xFFFF).to_bytes(2, "little")
+         + b"hello" + fixed, None),
+        ("empty", b"", 0),
+        ("truncated", fixed, 8 * len(fixed) // 2),
+        ("corrupted", bytes(b ^ 0x5A if i % 97 == 50 else b
+                            for i, b in enumerate(fixed)), None),
+        ("dynamic", raw(text, 9), None),
+        # a final static block: literal "A", then length 5 at distance 3
+        ("too_far", bytes.fromhex("73042300"), None),
+        ("method3", b"\x07\x00", None),
+        ("bad_stored", b"\x01\x05\x00\x00\x00hello", None),
+        ("eob_only", bytes.fromhex("0300"), None),  # a final static block, empty
+    ]
+    width = 4096
+    rows = torch.zeros(len(lanes), width, dtype=torch.uint8)
+    ends = []
+    for i, (lname, lane, end) in enumerate(lanes):
+        require(len(lane) <= width, f"error lane {lname} too long")
+        if lane:
+            rows[i, : len(lane)] = torch.frombuffer(bytearray(lane), dtype=torch.uint8)
+        ends.append(8 * len(lane) if end is None else end)
+    return ([lname for lname, _, _ in lanes], rows,
+            torch.tensor(ends, dtype=torch.int32))
 
 
 def capture(module, name: str, calls: list):
@@ -428,12 +518,11 @@ def main() -> None:
          "tpu_deflate/kernels/tokenize_dyn.py:465", tokenize_dyn_hier,
          tokenize_dyn_hier_plain, blocks_in[mid], work_hier, None),
     ]
-    # each kernel's chain of dependent steps: a serial tokenizer's longest
-    # lane's tokens; log2 of a chase's tiles or positions; for the
+    # each kernel's chain of dependent steps: the serial tokenizer's
+    # longest lane's tokens; log2 of a chase's tiles or positions; for the
     # tile-parallel tokenizer a map chain in a tile (32), the composition
     # over the tiles and a tile's walk (33)
     serial_steps = {
-        "tokenize_static_batch": lambda a, o: int(o[3].max()),
         "tokenize_dyn_batch": lambda a, o: int(o[3].max()),
         "ent_from_phi": lambda a, o: a[0].shape[2].bit_length() - 1,
         "visited_from_adv": lambda a, o: (a[0].numel() + 1).bit_length(),
@@ -448,12 +537,14 @@ def main() -> None:
         err = max_abs_err(got, want)
         require(err == 0, f"{kname} differs from its plain version by {err}")
         ms = cuda_ms(lambda: kern(*args), reps=10)
+        dev_ms = device_ms(lambda: kern(*args))
         plain_ms = cuda_ms(lambda: plain(*args), reps=2)
-        library_ms = None
+        library_ms = library_dev_ms = None
         if library is not None:
             require(max_abs_err((library(),), got) == 0,
                     f"{kname}: the library call differs from the kernel")
             library_ms = cuda_ms(library, reps=10)
+            library_dev_ms = device_ms(library)
         bound_ms, bound_by = bound(*work(args, got))
         serial_ms = None
         if kname in serial_steps:
@@ -463,17 +554,56 @@ def main() -> None:
                 f"{ms / steps * 1e6:.1f} ns a step; serial bound "
                 f"{serial_ms:.5f} ms at {STEP_CYCLES} cycles a step")
         lanes = got[0].shape[0]
-        log(f"kernel {kname}: equal to plain on {lanes} lanes; {ms:.3f} ms "
-            f"(plain {plain_ms:.3f} ms, library call "
-            f"{'none' if library_ms is None else f'{library_ms:.3f} ms'}, "
-            f"bound {bound_ms:.5f} ms by {bound_by}) on {name}, {smi}")
+        log(f"kernel {kname}: equal to plain on {lanes} lanes; device "
+            f"{fmt_ms(dev_ms)}, host-paced {ms:.4f} ms (plain {plain_ms:.3f} "
+            f"ms, library call "
+            f"{'none' if library_ms is None else f'device {fmt_ms(library_dev_ms)}, host-paced {library_ms:.4f} ms'}"
+            f", bound {bound_ms:.5f} ms by {bound_by}) on {name}, {smi}")
         results.append(dict(
             name=kname, route="cuda", source=f"tpu_deflate_torch/csrc/{src}",
             replaces=replaces, fn=kern, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library_ms, serial_bound_ms=serial_ms,
+            device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_ms,
+            library_device_ms=library_dev_ms, serial_bound_ms=serial_ms,
             launches_by_path={},
         ))
+
+    # the static tokenizer on lanes that end in each of its errors, at the
+    # decode path's pass and at passes of 1088 bits, over a token capacity
+    # that some lanes overflow, and as whole streams: every output equal,
+    # the token slots past each lane's count too
+    from tpu_deflate_torch.kernels import tokenize as KT
+
+    expect = {"static": KT.ERR_OK, "stored": KT.ERR_OK,  # where tokens fit
+              "stored_then_static": KT.ERR_OK, "empty": KT.ERR_OK,
+              "eob_only": KT.ERR_OK, "dynamic": KT.ERR_DYNAMIC,
+              "too_far": KT.ERR_DIST, "method3": KT.ERR_METHOD,
+              "bad_stored": KT.ERR_STORED}
+    elanes, erows, eends = error_lanes(data, torch)
+    erows, eends = erows.to(dev), eends.to(dev)
+    ew = erows.shape[1]
+    for cap, epwin, whole in ((ew + 16, D.chunk_pwin(ew), False),
+                              (ew + 16, 17 << 6, False),
+                              (300, D.chunk_pwin(ew), False),
+                              (ew + 16, D.chunk_pwin(ew), True)):
+        eargs = (erows, eends, cap, epwin, not whole)
+        got = tokenize_static_batch(*eargs)
+        want = tokenize_static_plain(*eargs)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        codes = dict(zip(elanes, got[6].tolist()))
+        require(err == 0, f"tokenize_static_batch differs from plain on the "
+                f"error lanes (tok_cap {cap}, pwin {epwin}) by {err}; {codes}")
+        if cap < ew:
+            require(codes["static_text"] == KT.ERR_OVERFLOW,
+                    f"no overflow at tok_cap {cap}: {codes}")
+        else:
+            for lname, code in expect.items():
+                require(codes[lname] == code,
+                        f"lane {lname}: error {codes[lname]}, expected {code}")
+        log(f"kernel tokenize_static_batch: equal to plain on {len(elanes)} "
+            f"error lanes at tok_cap {cap}, pwin {epwin}"
+            f"{', whole streams' if whole else ''}; errors {codes}")
 
     # the two new kernels again where trouble is likely: a chain as deep as
     # the row (a distance-1 run over a whole segment, over a whole 1 MiB
@@ -556,6 +686,15 @@ def main() -> None:
     dec_ms = cuda_ms(
         lambda: D.decode_rows_batch(rows, ends, out_cap=chunk, tok_cap=tok_cap), 5
     )
+    split = device_split(
+        lambda: D.decode_rows_batch(rows, ends, out_cap=chunk, tok_cap=tok_cap), 5)
+    tok_dev = sum(v for k, v in split.items() if "tokenize_static" in k)
+    exp_dev = sum(v for k, v in split.items() if "expand3" in k)
+    log(f"static decode_rows_batch, device time by profiler: "
+        f"{sum(split.values()):.4f} ms, of which tokenize_static_batch "
+        f"{tok_dev:.4f} ms, expand_fused3 {exp_dev:.4f} ms, the rest "
+        f"{sum(split.values()) - tok_dev - exp_dev:.4f} ms in "
+        f"{len(split)} kinds of launch on {name}, {smi}")
     api_s = time.perf_counter()
     for _ in range(3):
         decompress_indexed(*compress_indexed(data, cfg, device=dev), cfg,
@@ -848,8 +987,10 @@ def main() -> None:
         require(err == 0, f"{f} differs from its plain version on the long "
                 f"rows by {err}")
         ms = cuda_ms(lambda: fn(*args), reps=3)
+        dev_ms = device_ms(lambda: fn(*args), reps=3)
         log(f"kernel {f} on the long rows: equal to plain on 8 lanes of "
-            f"{tuple(args[0].shape[1:])}; {ms:.3f} ms on {name}, {smi}")
+            f"{tuple(args[0].shape[1:])}; device {fmt_ms(dev_ms)}, "
+            f"host-paced {ms:.4f} ms on {name}, {smi}")
     require(seen[3][0][5] == 1 << 20, f"long-row expansion at {seen[3][0][5]}")
 
     for r in results:

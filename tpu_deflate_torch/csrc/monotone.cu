@@ -63,40 +63,58 @@ extern "C" int mono_scatter_add_launch(const void* idx, const void* vals,
 // products and needs the live indices nondecreasing, advancing by at most
 // one per entry.  Here the sums need no order at all.
 //
-// Bound on the card: latency.  A lane's entries are read once, coalesced;
-// most are dead (the window past the header), and the live ones add into
-// shared memory.
+// Bound on the card: bytes, and at one lane a call, launch latency.  A
+// lane's indices are read once, 16 bytes a thread and load; most entries
+// are dead (the paint sends the window past the header to `size`), so a
+// value is read only for a live entry.
 //
 // Design: one block per lane.  The block zeroes a C x size accumulator in
 // shared memory, every thread adds its live entries into it with shared
-// integer atomics (exact in any order), and the block writes it out.  An
-// accumulator above the default 48 KiB of dynamic shared memory fails the
-// launch, which the entry point reports.
+// integer atomics (exact in any order), and the block writes all of it
+// out, so the output needs no memset.  The indices are read as int4 where
+// K and the pointer allow, else one int at a time.  An accumulator above
+// the default 48 KiB of dynamic shared memory fails the launch, which the
+// entry point reports.
 // ---------------------------------------------------------------------------
 
 namespace {
 
+__device__ __forceinline__ void paint(int* acc, const int* vl, int C, int K,
+                                      int size, int e, int j) {
+  if (j < 0 || j >= size) return;
+  for (int c = 0; c < C; ++c) {
+    const int v = vl[(long long)c * K + e];
+    if (v != 0) atomicAdd(acc + c * size + j, v);
+  }
+}
+
 __global__ void mono_compact_kernel(const int* __restrict__ idx,
                                     const int* __restrict__ vals,
                                     int* __restrict__ out, int C, int K,
-                                    int size) {
+                                    int size, bool vec_in) {
   extern __shared__ int acc[];  // [C][size]
   const int b = blockIdx.x;
-  for (int i = threadIdx.x; i < C * size; i += blockDim.x) acc[i] = 0;
+  const int n = C * size;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) acc[i] = 0;
   __syncthreads();
   const int* il = idx + (long long)b * K;
   const int* vl = vals + (long long)b * C * K;
-  for (int e = threadIdx.x; e < K; e += blockDim.x) {
-    const int j = il[e];
-    if (j < 0 || j >= size) continue;
-    for (int c = 0; c < C; ++c) {
-      const int v = vl[(long long)c * K + e];
-      if (v != 0) atomicAdd(acc + c * size + j, v);
+  if (vec_in) {
+    const int4* i4 = reinterpret_cast<const int4*>(il);
+    for (int g = threadIdx.x; g < K / 4; g += blockDim.x) {
+      const int4 j = __ldg(i4 + g);
+      paint(acc, vl, C, K, size, 4 * g, j.x);
+      paint(acc, vl, C, K, size, 4 * g + 1, j.y);
+      paint(acc, vl, C, K, size, 4 * g + 2, j.z);
+      paint(acc, vl, C, K, size, 4 * g + 3, j.w);
     }
+  } else {
+    for (int e = threadIdx.x; e < K; e += blockDim.x)
+      paint(acc, vl, C, K, size, e, __ldg(il + e));
   }
   __syncthreads();
-  int* ol = out + (long long)b * C * size;
-  for (int i = threadIdx.x; i < C * size; i += blockDim.x) ol[i] = acc[i];
+  int* ol = out + (long long)b * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) ol[i] = acc[i];
 }
 
 }  // namespace
@@ -105,7 +123,8 @@ extern "C" int mono_compact_launch(const void* idx, const void* vals,
                                    void* out, int B, int C, int K, int size,
                                    void* stream) {
   const size_t smem = sizeof(int) * (size_t)C * size;
-  mono_compact_kernel<<<B, 512, smem, (cudaStream_t)stream>>>(
-      (const int*)idx, (const int*)vals, (int*)out, C, K, size);
+  const bool vec_in = K % 4 == 0 && ((uintptr_t)idx & 15) == 0;
+  mono_compact_kernel<<<B, 256, smem, (cudaStream_t)stream>>>(
+      (const int*)idx, (const int*)vals, (int*)out, C, K, size, vec_in);
   return (int)cudaGetLastError();
 }

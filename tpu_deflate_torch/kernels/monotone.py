@@ -75,7 +75,8 @@ def mono_compact(idx: torch.Tensor, vals: torch.Tensor,
     C * size * 4 bytes at most 48 KiB (the kernel's accumulator in shared
     memory; a larger one fails its launch).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which writes every element of the output."""
     if idx.device.type == "cpu":
         return mono_compact_plain(idx, vals, size)
     if idx.dtype != torch.int32 or vals.dtype != torch.int32:
@@ -85,9 +86,9 @@ def mono_compact(idx: torch.Tensor, vals: torch.Tensor,
     if idx.shape != (B, K):
         raise ValueError(f"mono_compact: idx {tuple(idx.shape)} vs "
                          f"vals {tuple(vals.shape)}")
-    out = torch.zeros(B, C, size, dtype=torch.int32, device=vals.device)
     if B * K == 0:
-        return out
+        return torch.zeros(B, C, size, dtype=torch.int32, device=vals.device)
+    out = torch.empty(B, C, size, dtype=torch.int32, device=vals.device)
     code = build.library().mono_compact_launch(
         idx.data_ptr(), vals.data_ptr(), out.data_ptr(), B, C, K, size,
         build.stream_handle(idx.device),

@@ -317,7 +317,9 @@ def tokenize_static_batch(rows: torch.Tensor, end_bits: torch.Tensor,
 
     Returns (tk, ta, tb, ntok, out_total, end_pos, err), see the module
     docstring.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel, which appends to the token buffers of ``resume`` in place."""
+    the kernel, one block a lane, which appends to the token buffers of
+    ``resume`` in place and otherwise fills fresh ones, zero past each
+    lane's tokens."""
     if rows.device.type == "cpu":
         return tokenize_static_plain(rows, end_bits, tok_cap, pwin,
                                      stop_at_eob, one_block, resume, later)
@@ -328,7 +330,7 @@ def tokenize_static_batch(rows: torch.Tensor, end_bits: torch.Tensor,
     B, M = rows.shape
     dev = rows.device
     if resume is None:
-        tk, ta, tb = (torch.zeros(B, tok_cap, dtype=torch.int32, device=dev)
+        tk, ta, tb = (torch.empty(B, tok_cap, dtype=torch.int32, device=dev)
                       for _ in range(3))
         state_ptr = None
     else:
