@@ -20,12 +20,22 @@ Phases, each of which raises on failure:
                the device time of the kernel and of that call (the
                profiler's time of all they launch); the least time the
                card could take, from the bytes and operations of this
-               run's inputs, and for the serial dynamic tokenizer and the
-               chases also their chain of dependent steps; then the static
-               tokenizer on error lanes built here (stored, empty, cut,
-               corrupt, dynamic, type 3, a distance too far, a lane over
-               a small token capacity), at passes of 1088 bits and as
-               whole streams, all seven outputs equal to plain
+               run's inputs, and for the chases also their chain of
+               dependent steps; then the static tokenizer on error lanes
+               built here (stored, empty, cut, corrupt, dynamic, type 3, a
+               distance too far, a lane over a small token capacity), at
+               passes of 1088 bits and as whole streams, all seven outputs
+               equal to plain; the dynamic tokenizer on its own error
+               lanes (zlib at levels 1, 6 and 9, a 1-bit code, 48-bit
+               symbols, a distance too far, a bad code, a cut stream, a
+               failed header, each also resumed after earlier tokens and
+               output) at passes of 1088 bits, at a small token capacity
+               and into the caller's buffers, and on calls of the general
+               pipeline with one lane; both expanders where matches reach
+               before the row, and expand_fused3 on a distance-1 run of
+               64 KiB, a stored token of the whole row and rows of 4096
+               bytes.  Before all of these, the process's first expansion:
+               decompress of a stream of 12000 bytes, one row of 16384
   4. main    — 8 MiB of tests/data/corpus.bin.gz through compress_indexed
                and decompress_indexed with DEFAULT; stock zlib checks the
                stream; every kernel must have launched; the device time of
@@ -96,11 +106,10 @@ PIN_DYNAMIC = (3695814,
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 SYMBOL_OPS = 32  # integer operations to decode one symbol, about
-# a serial kernel's second bound: a symbol starts where the one before
-# ended, so a serial lane is a chain of dependent decodes, each at least
-# one read of shared memory (about 20 cycles) at the data sheet's boost
-# clock.  The static tokenizer has no such chain: its blocks find the
-# symbol starts of a window in parallel, so its bound is bytes alone.
+# a chase's second bound: a chain of dependent steps, each at least one
+# read of shared memory (about 20 cycles) at the data sheet's boost clock.
+# The two tokenizers have no such chain: their blocks find the symbol
+# starts of a window in parallel, so their bound is bytes alone.
 SM_HZ = 1.98e9
 STEP_CYCLES = 20
 
@@ -315,6 +324,36 @@ def error_lanes(data: bytes, torch):
             torch.tensor(ends, dtype=torch.int32))
 
 
+def dyn_error_lanes(data: bytes, L):
+    """(name, stream, end bit) of lanes that each start with a dynamic
+    header and end in one of the dynamic tokenizer's outcomes: zlib blocks
+    at levels 1, 6 and 9, a Z_HUFFMAN_ONLY block with a 1-bit literal code,
+    a block whose widest symbol is 48 bits (15-bit length and distance
+    codes, 5 and 13 extra bits), a distance too far, a bad code, a cut
+    stream, a header that fails.  L: the port's lane builders."""
+
+    def raw(payload, level=9, strategy=zlib.Z_DEFAULT_STRATEGY, **kw):
+        co = zlib.compressobj(level, zlib.DEFLATED, -15, 9, strategy, **kw)
+        return co.compress(payload) + co.flush()
+
+    text = data[40000:43000]
+    skew = bytes(2500) + data[7000:7120]
+    zl9 = raw(text, 9)
+    cl_oversub = [(1, 1), (2, 2), (0, 5), (0, 5), (15, 4)] + [(1, 3)] * 19
+    lanes = [
+        ("zlib1", raw(text, 1), None),
+        ("zlib6", raw(text, 6), None),
+        ("zlib9", zl9, None),
+        ("huffman_only", raw(skew, 9, zlib.Z_HUFFMAN_ONLY), None),
+        ("wide", L.wide_block(), None),
+        ("far", raw(text[300:2300], 9, zdict=text[:300]), None),
+        ("bad_code", L.bad_code_block(), None),
+        ("truncated", zl9, 4 * len(zl9)),
+        ("cl_oversub", L.bits_to_bytes(cl_oversub + [(1, 1)] * 400), None),
+    ]
+    return [(n, s, 8 * len(s) if e is None else e) for n, s, e in lanes]
+
+
 def capture(module, name: str, calls: list):
     """Replace module.name by a wrapper that records each call's args in
     calls; returns the original, to be put back."""
@@ -396,6 +435,21 @@ def main() -> None:
     cfg = DEFAULT
     chunk = cfg.chunk_size
     data = load_corpus(SIZE)
+    # the process's first expansion, at a row whose shared memory fits
+    # only with the opt-in (3 * 16384 bytes beside the kernel's static
+    # queue): decompress of a stream of 12000 bytes expands one row of 16384
+    first3 = []
+    orig = capture(X, "expand_fused3", first3)
+    small = data[:12000]
+    require(decompress(zlib.compress(small, 6), device=dev) == small,
+            "a stream of 12000 bytes did not decode")
+    X.expand_fused3 = orig
+    require(len(first3) == 1 and first3[0][6] == 1 << 14,
+            f"{len(first3)} first expansions, rows {[a[6] for a in first3]}")
+    require(torch.equal(expand_fused3(*first3[0]), expand_fused3_plain(*first3[0])),
+            "expand_fused3 differs from plain on its first row, of 16384 bytes")
+    log("kernel expand_fused3: its first launch, a row of 16384 bytes in "
+        "decompress, equal to plain")
     B = SIZE // chunk
     chunks = torch.frombuffer(bytearray(data), dtype=torch.uint8)
     chunks = chunks.reshape(B, chunk).to(dev)
@@ -518,12 +572,10 @@ def main() -> None:
          "tpu_deflate/kernels/tokenize_dyn.py:465", tokenize_dyn_hier,
          tokenize_dyn_hier_plain, blocks_in[mid], work_hier, None),
     ]
-    # each kernel's chain of dependent steps: the serial tokenizer's
-    # longest lane's tokens; log2 of a chase's tiles or positions; for the
-    # tile-parallel tokenizer a map chain in a tile (32), the composition
-    # over the tiles and a tile's walk (33)
+    # each kernel's chain of dependent steps: log2 of a chase's tiles or
+    # positions; for the tile-parallel tokenizer a map chain in a tile (32),
+    # the composition over the tiles and a tile's walk (33)
     serial_steps = {
-        "tokenize_dyn_batch": lambda a, o: int(o[3].max()),
         "ent_from_phi": lambda a, o: a[0].shape[2].bit_length() - 1,
         "visited_from_adv": lambda a, o: (a[0].numel() + 1).bit_length(),
         "tokenize_dyn_hier": lambda a, o: 32 + (a[4] // 64).bit_length() - 1 + 33,
@@ -604,6 +656,157 @@ def main() -> None:
         log(f"kernel tokenize_static_batch: equal to plain on {len(elanes)} "
             f"error lanes at tok_cap {cap}, pwin {epwin}"
             f"{', whole streams' if whole else ''}; errors {codes}")
+
+    # the dynamic tokenizer on lanes that end in each of its outcomes, each
+    # also resumed after earlier tokens and output (tok0, TAB_OUTBASE), at
+    # the decode path's pass and at passes of 1088 bits, over a token
+    # capacity that some lanes overflow, and into the caller's buffers:
+    # every output equal, the token slots outside the block's tokens too
+    from tpu_deflate_torch import lanes as L
+
+    dlanes = dyn_error_lanes(data, L)
+    dnames = [n for n, _, _ in dlanes]
+    drows_e = torch.zeros(len(dlanes), ew, dtype=torch.uint8)
+    for i, (lname, lane, _) in enumerate(dlanes):
+        require(len(lane) <= ew, f"dynamic error lane {lname} too long")
+        drows_e[i, : len(lane)] = torch.frombuffer(bytearray(lane), dtype=torch.uint8)
+    dends_e = torch.tensor([e for _, _, e in dlanes], dtype=torch.int32)
+    dprep = D.dyn_header_params_batch(drows_e.to(dev), dends_e.to(dev))
+    dcoded, dstarts, dstatus = D.dyn_lanes(dprep)
+    require(bool(dcoded.all()), "a dynamic error lane is not coded")
+    require(int(dprep["min_len"][dnames.index("huffman_only")]) == 1,
+            "the Z_HUFFMAN_ONLY lane has no 1-bit code")
+    resumed = {"zlib9": (5, 40), "far": (7, 300), "wide": (3, 9),
+               "huffman_only": (1, 1), "cl_oversub": (4, 4)}
+    src = torch.tensor(list(range(len(dnames))) + [dnames.index(k) for k in resumed],
+                       device=dev)
+    etab = dprep["tab"][src].clone()
+    etab[len(dnames):, KD.TAB_OUTBASE] = torch.tensor(
+        [ob for _, ob in resumed.values()], dtype=torch.int32, device=dev)
+    etok0 = torch.tensor([0] * len(dnames) + [t0 for t0, _ in resumed.values()],
+                         dtype=torch.int32, device=dev)
+    dargs = (drows_e.to(dev)[src], dends_e.to(dev)[src], etab, dstarts[src],
+             dstatus[src], etok0)
+    anames = dnames + [f"{k}_resumed" for k in resumed]
+    for cap, epwin, into in ((ew + 16, D.chunk_pwin(ew), False),
+                             (ew + 16, 17 << 6, False),
+                             (300, D.chunk_pwin(ew), False),
+                             (ew + 16, D.chunk_pwin(ew), True)):
+        bufs = (torch.randint(1, 99, (3, len(anames), cap), dtype=torch.int32,
+                              generator=rng).to(dev) if into else None)
+        got = tokenize_dyn_batch(*dargs, cap, epwin,
+                                 into=tuple(bufs.clone()) if into else None)
+        want = tokenize_dyn_plain(*dargs, cap, epwin,
+                                  into=tuple(bufs.clone()) if into else None)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        codes = dict(zip(anames, got[6].tolist()))
+        require(err == 0, f"tokenize_dyn_batch differs from plain on the error "
+                f"lanes (tok_cap {cap}, pwin {epwin}) by {err}; {codes}")
+        if cap < ew:
+            require(codes["zlib9"] == codes["huffman_only"] == KT.ERR_OVERFLOW,
+                    f"no overflow at tok_cap {cap}: {codes}")
+        else:
+            require(all(codes[k] == KT.ERR_OK for k in (
+                "zlib1", "zlib6", "zlib9", "huffman_only", "wide", "far_resumed")),
+                f"dynamic lanes: {codes}")
+            require(codes["far"] == KT.ERR_DIST and codes["bad_code"] == KT.ERR_BAD_CODE
+                    and codes["truncated"] in (KT.ERR_BAD_CODE, KT.ERR_INPUT)
+                    and codes["cl_oversub"] == int(dstatus[dnames.index("cl_oversub")]) >= 0,
+                    f"dynamic error lanes: {codes}")
+        log(f"kernel tokenize_dyn_batch: equal to plain on {len(anames)} error "
+            f"lanes at tok_cap {cap}, pwin {epwin}"
+            f"{', into the caller buffers' if into else ''}; errors {codes}")
+
+    # the same kernel through the general pipeline, one lane a launch: a
+    # Z_HUFFMAN_ONLY stream with a 1-bit code and zlib -6 of 1 MiB, each
+    # call's arguments kept (the token buffers before the call) and run
+    # again against the plain version
+    general_calls = []
+    dyn_kernel = D.tokenize_dyn_batch
+
+    def keep_call(*a, into=None):
+        general_calls.append((a, tuple(x.clone() for x in into)))
+        return dyn_kernel(*a, into=into)
+
+    D.tokenize_dyn_batch = keep_call
+    skew = bytes(3 << 16) + data[: 1 << 16]
+    co = zlib.compressobj(9, zlib.DEFLATED, -15, 8, zlib.Z_HUFFMAN_ONLY)
+    for zs, want_bytes in ((co.compress(skew) + co.flush(), skew),
+                           (zlib.compress(data[: 1 << 20], 6)[2:], data[: 1 << 20])):
+        first = len(general_calls)
+        gout, gtotal, _ = D._inflate_general(zs, device=dev)
+        require(gout[:gtotal].tobytes() == want_bytes, "the general pipeline "
+                "did not return the input")
+        require(len(general_calls) > first, "no dynamic block")
+        general_calls[first + 2 :] = []
+    D.tokenize_dyn_batch = dyn_kernel
+    for a, bufs in general_calls:
+        got = tokenize_dyn_batch(*a, into=tuple(x.clone() for x in bufs))
+        want = tokenize_dyn_plain(*a, into=tuple(x.clone() for x in bufs))
+        err = max_abs_err(got, want)
+        require(err == 0, f"tokenize_dyn_batch differs from plain on the general "
+                f"pipeline's lane by {err}")
+    log(f"kernel tokenize_dyn_batch: equal to plain on {len(general_calls)} "
+        f"calls of the general pipeline (B = 1, a 1-bit code and zlib -6)")
+
+    # both expanders where a match reaches before the row: the lane of
+    # bytes 65 66 65 65 65 65 67, seeded lanes, the too_far error lane's
+    # tokens; then expand_fused3 on a distance-1 run of 64 KiB, a stored
+    # token as wide as the row, and rows of 4096 bytes
+    ftk, fta, ftb, ftp = (torch.from_numpy(x) for x in L.far_token_lanes(SEED))
+    etk, eta, etb, etp, *_ = tokenize_static_batch(erows, eends, ew + 16,
+                                                   D.chunk_pwin(ew))
+    tf = elanes.index("too_far")  # a lane more: that lane's tokens
+    n_tf = int(etp[tf])
+    ftk, fta, ftb = (torch.cat([x, torch.nn.functional.pad(
+        y[tf : tf + 1, :n_tf].cpu(), (0, x.shape[1] - n_tf))])
+        for x, y in ((ftk, etk), (fta, eta), (ftb, etb)))
+    ftp = torch.cat([ftp, torch.tensor([n_tf], dtype=torch.int32)])
+    ftk, fta, ftb, ftp = (x.to(dev) for x in (ftk, fta, ftb, ftp))
+    foff, fc1, ftotal = X._expand_inputs(ftk, fta, ftp)
+    fcap = 2048 * -(-int(ftotal.max()) // 2048)
+    frows = torch.zeros(ftk.shape[0], 1, dtype=torch.uint8, device=dev)
+    for kname, kern, plain, args in (
+        ("expand_fused3", expand_fused3, expand_fused3_plain,
+         (frows, foff, fc1, ftb, ftp, ftotal, fcap)),
+        ("expand_fused2", expand_fused2, expand_fused2_plain,
+         (foff, fc1, ftb, ftp, ftotal, fcap)),
+    ):
+        got = kern(*args)
+        require(torch.equal(got, plain(*args)), f"{kname} differs from plain "
+                "where matches reach before the row")
+        require(got[0, :7].tolist() == L.FAR_BYTES
+                and got[-1, : int(ftotal[-1])].eq(65).all(),
+                f"{kname}: {got[0, :7].tolist()}, too_far lane "
+                f"{got[-1, : int(ftotal[-1])].tolist()}")
+    log(f"expanders: expand_fused3 and expand_fused2 equal to plain on "
+        f"{ftk.shape[0]} lanes with matches before the row (the too_far lane "
+        f"of {n_tf} tokens among them)")
+    wide = 1 << 16
+    n_run = wide // 258
+    tk3, ta3, tb3 = (torch.zeros(2, wide + 16, dtype=torch.int32) for _ in range(3))
+    tk3[0, 1 : n_run + 2], ta3[0, 1 : n_run + 2], tb3[0, 1 : n_run + 2] = 1, 258, 1
+    ta3[0, 0], ta3[0, n_run + 1] = 65, wide - 1 - 258 * n_run
+    tk3[1, 0], ta3[1, 0], tb3[1, 0] = 2, wide, 40  # stored, the whole row
+    tp3 = torch.tensor([n_run + 2, 1], dtype=torch.int32)
+    rows3 = torch.randint(0, 256, (2, wide + 40), generator=rng, dtype=torch.uint8)
+    tk3, ta3, tb3, tp3, rows3 = (x.to(dev) for x in (tk3, ta3, tb3, tp3, rows3))
+    off3, c13, total3 = X._expand_inputs(tk3, ta3, tp3)
+    args3 = (rows3, off3, c13, tb3, tp3, total3, wide)
+    got = expand_fused3(*args3)
+    require(torch.equal(got, expand_fused3_plain(*args3)),
+            "expand_fused3 differs from plain on a distance-1 run or a stored row")
+    require(bool(got[0].eq(65).all()) and torch.equal(got[1], rows3[1, 40:]),
+            "expand_fused3: the run or the stored row is wrong")
+    run3_ms = cuda_ms(lambda: expand_fused3(*args3), reps=10)
+    eoff, ec1, etotal = X._expand_inputs(etk, eta, etp)
+    args4 = (erows, eoff, ec1, etb, etp, etotal, ew)
+    require(torch.equal(expand_fused3(*args4), expand_fused3_plain(*args4)),
+            "expand_fused3 differs from plain on rows of 4096 bytes")
+    log(f"kernel expand_fused3: equal to plain on a distance-1 run of {wide} "
+        f"bytes and a stored token of the whole row ({run3_ms:.4f} ms "
+        f"host-paced), and on {len(elanes)} rows of {ew} bytes on {name}, {smi}")
 
     # the two new kernels again where trouble is likely: a chain as deep as
     # the row (a distance-1 run over a whole segment, over a whole 1 MiB
@@ -799,7 +1002,7 @@ def main() -> None:
     # ---- 7. one zlib stream, one lane, the general pipeline --------------
     def general(zs, want):
         """The general pipeline of decompress: the zlib stream's body from
-        bit 16, the block walk over the two serial tokenizers, then the
+        bit 16, the block walk over the two tokenizer kernels, then the
         expansion; (output, host seconds)."""
         t0 = time.perf_counter()
         out, total, _end = D._inflate_general(zs, start_bit=16, device=dev)
@@ -887,7 +1090,7 @@ def main() -> None:
             "mono_compact", "expand_fused2")
     (fs, ok), counts = counted("foreign", lambda: foreign(zs6, data), path)
     require(ok, "the -6 stream fell back to the general pipeline")
-    require(counts["tokenize_dyn_batch"] == 0, "the serial dynamic kernel ran")
+    require(counts["tokenize_dyn_batch"] == 0, "the block-per-lane dynamic kernel ran")
     require(counts["visited_from_adv"] == counts["ent_from_phi"]
             == counts["tokenize_dyn_hier"] == blocks,
             f"not one launch of each a dynamic block ({blocks}): {counts}")

@@ -26,6 +26,7 @@ from tpu_deflate.ops.decode import expand_batch as j_expand_batch  # noqa: E402
 from tpu_deflate.ops.decode import tokenize as j_tokenize  # noqa: E402
 from tpu_deflate.ops.encode import _match_extend_bitplane  # noqa: E402
 from tpu_deflate_torch.kernels.expand3 import expand_fused3  # noqa: E402
+from tpu_deflate_torch.lanes import bits_to_bytes  # noqa: E402
 from tpu_deflate_torch.kernels.match2 import match_bitplane_batch  # noqa: E402
 from tpu_deflate_torch.kernels.monotone import mono_scatter_add  # noqa: E402
 from tpu_deflate_torch.kernels.tokenize import (  # noqa: E402
@@ -113,20 +114,7 @@ def test_scatter_add_equals_xla(seed, C):
 M = 4096
 
 
-def _bits_to_bytes(fields):
-    """(value, nbits) fields, LSB-first, -> bytes."""
-    acc = nb = 0
-    out = bytearray()
-    for v, n in fields:
-        acc |= v << nb
-        nb += n
-        while nb >= 8:
-            out.append(acc & 0xFF)
-            acc >>= 8
-            nb -= 8
-    if nb:
-        out.append(acc & 0xFF)
-    return bytes(out)
+_bits_to_bytes = bits_to_bytes
 
 
 def _static_block(tokens, final=1):

@@ -148,7 +148,8 @@ def test_import_leaves_jax_out():
             "import tpu_deflate_torch.kernels.expand2, "
             "tpu_deflate_torch.kernels.resolve, tpu_deflate_torch.ops.expand, "
             "tpu_deflate_torch.ops.foreign, tpu_deflate_torch.kernels.chase1, "
-            "tpu_deflate_torch.kernels.tokenize_dyn, tpu_deflate_torch.ops.header; "
+            "tpu_deflate_torch.kernels.tokenize_dyn, tpu_deflate_torch.ops.header, "
+            "tpu_deflate_torch.lanes; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'tpu_deflate' not in sys.modules, 'tpu_deflate imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)

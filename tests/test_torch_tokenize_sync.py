@@ -1,5 +1,6 @@
 """A numpy model of the static tokenizer kernel's schedule
-(``tpu_deflate_torch/csrc/tokenize.cu``): a pass's symbol starts found by
+(``tpu_deflate_torch/csrc/tokenize.cu`` on the pass engine of
+``csrc/pass.cuh``): a pass's symbol starts found by
 a fixed-point iteration over subsequences of S bits, each walk keeping
 its tokens in its subsequence's slice, then the cut at the first
 terminal, block scans of tokens and bytes, and the slices copied out to

@@ -1,6 +1,6 @@
 // One candidate symbol under a block's canonical Huffman tables, shared by
-// the serial dynamic tokenizer (tokenize_dyn.cu) and the tile-parallel one
-// (tokenize_hier.cu).
+// the dynamic tokenizer (tokenize_dyn.cu, for codes longer than its
+// first-level tables take) and the tile-parallel one (tokenize_hier.cu).
 //
 // The tables come packed, TAB_W int32 per lane (layout TAB_* in
 // kernels/tokenize_dyn.py).  A code's length is the number of limits
@@ -14,12 +14,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pass.cuh"
+
 namespace dyn {
 
-constexpr int ERR_OK = 0, ERR_BAD_CODE = 2, ERR_DIST = 4, ERR_OVERFLOW = 5,
-              ERR_INPUT = 7;
-constexpr int TK_LIT = 0, TK_MATCH = 1;
-constexpr int K_LIT = 0, K_EOB = 1, K_MATCH = 2, K_BAD = 3;
+// the error codes, token and symbol kinds, and the symbol of pass.cuh
+using pass::ERR_BAD_CODE;
+using pass::ERR_DIST;
+using pass::ERR_INPUT;
+using pass::ERR_OK;
+using pass::ERR_OVERFLOW;
+using pass::K_BAD;
+using pass::K_EOB;
+using pass::K_LIT;
+using pass::K_MATCH;
+using pass::Sym;
+using pass::TK_LIT;
+using pass::TK_MATCH;
 constexpr int TAB_LIT_LIM = 0, TAB_LIT_RD = 16, TAB_DIST_LIM = 32,
               TAB_DIST_RD = 48, TAB_SYM8 = 64, TAB_SYMHI = 136,
               TAB_DSYM8 = 145, TAB_OUTBASE = 155, TAB_W = 160;
@@ -52,10 +63,6 @@ __device__ __forceinline__ void load_tables(Tables& s, const int* t) {
     }
   }
 }
-
-struct Sym {
-  int kind, adv, ta, dist;
-};
 
 __device__ __forceinline__ int rev15(uint64_t w) {
   return (int)(__brev((unsigned)(w & 0x7FFF)) >> 17);

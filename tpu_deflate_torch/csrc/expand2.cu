@@ -23,7 +23,8 @@
 //      at itself.  Byte p of a match at offset o with distance d points at
 //      byte o - d + ((p - o) mod d), which lies before o whatever the
 //      overlap, so a run of any length is one step deep, not one step a
-//      byte.  A match reaching before the row's start reads zero; stored
+//      byte.  A source before the row's start is byte 0, as in the plain
+//      version and the JAX package; a match of distance 0 reads zero; stored
 //      tokens are not this kernel's and leave zeros (callers send such
 //      batches through resolve_roots); bytes at and past the lane's total
 //      are zero.
@@ -73,9 +74,8 @@ __global__ void expand2_owner_kernel(
       } else if (kind == kMatch) {
         const int o = offl[lo];
         const int d = tb[(size_t)lane * K + lo];
-        const int src = d > 0 ? o - d + (p - o) % d : -1;
-        if (src >= 0) {
-          self = src;
+        if (d > 0) {  // a source before the row is the row's byte 0
+          self = max(o - d + (p - o) % d, 0);
           any_match = true;
         }
       }

@@ -14,37 +14,14 @@
 // steps as long as the lane is left.
 //
 // Design: one thread block a lane, the block loop as the JAX tokenizer
-// runs it, in passes of `pwin` bit positions.  A pass:
-//   1. stages its window of the stream, from the pass's first byte to
-//      pwin / 8 + 16 bytes on, into dynamic shared memory with cp.async
-//      (bytes past the row read as zero);
-//   2. finds the true symbol starts by a fixed-point iteration.  The
-//      window is cut into subsequences of S >= 32 bits, one a thread.
-//      Thread j walks p -> p + adv(p) from its entry e_j, through
-//      terminals too, to its exit x_j, the first position past its
-//      subsequence; then e_{j+1} <- x_j, until no entry changes.  e_0 is
-//      the pass's start.  After round r the entries 0..r are on the true
-//      chain (e_{j+1} follows from an exact e_j in one walk), so the
-//      iteration ends within one round a subsequence, and it ends only
-//      where every e_{j+1} = x_j, which is the true chain.  A walk from a
-//      guess e_j = jS is exact from the first position it shares with the
-//      true chain on; in runs of 8-bit literal codes a walk can stay out
-//      of step for hundreds of bits, so the rounds a pass takes are about
-//      that distance over S, and a round walks again only where an entry
-//      moved.  A walk keeps the tokens it passes before its first
-//      terminal, packed, in the thread's own slice of shared memory: a
-//      token is at least 8 bits wide, so a slice of S / 8 + 1 holds them;
-//   3. takes the pass's first terminal (end-of-block or bad code) on the
-//      chain as a block-wide minimum, and counts tokens and output bytes
-//      before it with block scans;
-//   4. copies the tokens out to their slots, only where the pass's tokens
-//      fit (cap_ok): each warp writes its 32 threads' slices as one run of
-//      slots, so neighbouring threads store neighbouring words.
-// The pass's rules are those of the JAX tokenizer: positions at or past
-// the lane's end bit decode as a bad code of width 1; a pass ends at an
-// end-of-block, a bad code, or the first chain position at or past the
-// window; its error is ERR_OVERFLOW if its tokens do not fit, else
-// ERR_DIST if a match reaches before the output start, else ERR_BAD_CODE.
+// runs it, each Huffman block in passes of `pwin` bit positions by the
+// pass engine of pass.cuh (its head note): the window staged with
+// cp.async, the symbol starts found by a fixed-point iteration over
+// subsequences of S >= 32 bits (a static symbol is at most 31 bits wide),
+// a block-minimum cut, block scans, and a warp-at-a-time copy-out only
+// where the pass's tokens fit.  A walk keeps the tokens it passes before
+// its first terminal, packed, in the thread's own slice of shared memory:
+// a token is at least 8 bits wide, so a slice of S / 8 + 1 holds them all.
 // Block headers are decoded by every thread alike (one thread writes a
 // stored block's token), so the lane's state needs no shared copy.  A
 // symbol is two table reads in shared memory (512 entries for the
@@ -67,22 +44,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <climits>
+#include "launch.cuh"
+#include "pass.cuh"
 
 namespace {
 
-constexpr int ERR_OK = 0, ERR_METHOD = 1, ERR_BAD_CODE = 2, ERR_DIST = 4,
-              ERR_OVERFLOW = 5, ERR_STORED = 6, ERR_INPUT = 7,
-              ERR_DYNAMIC = 8;
-constexpr int TK_LIT = 0, TK_MATCH = 1, TK_STORED = 2;
+using namespace pass;
+
+constexpr int ERR_METHOD = 1, ERR_STORED = 6, ERR_DYNAMIC = 8;
+constexpr int TK_STORED = 2;
 constexpr int M_HEADER = 0, M_TOKENS = 3, M_DONE = 4, M_ERROR = 5;
-constexpr int K_LIT = 0, K_EOB = 1, K_MATCH = 2, K_BAD = 3;
 constexpr int F_GO_ON = 1, F_ONE_BLOCK = 2, F_LATER = 4;
 
-constexpr int THREADS = 1024;
-constexpr int WARPS = THREADS / 32;
 constexpr int MIN_SUB = 32;  // a symbol is at most 31 bits wide
-constexpr int NONE = INT_MAX;
 
 // The stream's bits from bit position pos on, LSB first; bytes past the
 // row read as zero.  At least 57 bits are valid.
@@ -98,10 +72,6 @@ __device__ __forceinline__ uint64_t bits_at(const uint8_t* row, int M,
   }
   return w >> (pos & 7);
 }
-
-struct Sym {
-  int kind, adv, ta, dist;
-};
 
 // The static code as two tables: lit[first 9 bits, LSB first] = kind |
 // width << 2 | extra bits << 6 | (literal or length base) << 9, and
@@ -175,133 +145,56 @@ struct Window {
   }
 };
 
-// A walk of one subsequence from its entry up to `hi`: the exit (first
-// position at or past hi), the first terminal on the way (NONE if none)
-// with its width and kind, and before it the tokens (packed into `out`:
-// match << 25 | ta << 16 | dist), the output bytes, and the most that a
-// distance reaches past the walk's own output (`need`, at least 0).
-struct Seg {
-  int exit, term, term_adv, n, produced, need;
-  bool term_eob;
-};
-
-__device__ __forceinline__ Seg walk(const Window& w, int e, int hi,
-                                    uint32_t* out) {
-  Seg s{e, NONE, 0, 0, 0, 0, false};
-  int p = e;
-  while (p < hi) {
-    if (p >= w.room) {  // bad codes of width 1 from here to the end
-      if (s.term == NONE) {
-        s.term = p;
-        s.term_adv = 1;
-      }
-      p = hi;
-      break;
-    }
-    const Sym y = w.at(p);
-    if (s.term == NONE) {
-      if (y.kind == K_EOB || y.kind == K_BAD) {
-        s.term = p;
-        s.term_adv = y.adv;
-        s.term_eob = y.kind == K_EOB;
-      } else {
-        const bool m = y.kind == K_MATCH;
-        if (m) s.need = max(s.need, y.dist - s.produced);
-        out[s.n++] = (uint32_t)m << 25 | (uint32_t)y.ta << 16 | (uint32_t)y.dist;
-        s.produced += m ? y.ta : 1;
-      }
-    }
-    p += y.adv;
-  }
-  s.exit = p;
-  return s;
-}
-
-// Exclusive block scan of (a, b) over the block's threads; (ta, tb) get
-// the block's totals.  wa, wb: WARPS ints of shared memory each.
-__device__ __forceinline__ void scan2(int& a, int& b, int& ta, int& tb,
-                                      int* wa, int* wb) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int ia = a, ib = b;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int x = __shfl_up_sync(0xFFFFFFFFu, ia, o);
-    const int y = __shfl_up_sync(0xFFFFFFFFu, ib, o);
-    if (lane >= o) {
-      ia += x;
-      ib += y;
-    }
-  }
-  if (lane == 31) {
-    wa[warp] = ia;
-    wb[warp] = ib;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int x = wa[lane], y = wb[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(0xFFFFFFFFu, x, o);
-      const int v = __shfl_up_sync(0xFFFFFFFFu, y, o);
-      if (lane >= o) {
-        x += u;
-        y += v;
-      }
-    }
-    wa[lane] = x;  // inclusive over warps
-    wb[lane] = y;
-  }
-  __syncthreads();
-  const int pa = warp ? wa[warp - 1] : 0, pb = warp ? wb[warp - 1] : 0;
-  ta = wa[WARPS - 1];
-  tb = wb[WARPS - 1];
-  a = pa + ia - a;
-  b = pb + ib - b;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid)
-               : "memory");
-}
-
-// Subsequence bits, and words of a thread's token slice (odd, so the
-// threads of a warp write their slices in different banks).
-__host__ __device__ __forceinline__ int sub_bits(int pwin) {
-  return max(MIN_SUB, (pwin + THREADS - 1) / THREADS);
-}
+// Words of a thread's token slice: a token is at least 8 bits wide, so
+// S / 8 + 1 (odd, so the threads of a warp write their slices in
+// different banks).
 __host__ __device__ __forceinline__ int slice_words(int pwin) {
-  return ((sub_bits(pwin) + 7) / 8 + 1) | 1;
+  return ((sub_bits(pwin, MIN_SUB) + 7) / 8 + 1) | 1;
 }
-// The window's 16-byte chunks: the most a pass stages (its first byte at
-// most 15 bytes past an aligned address).
-__host__ __device__ __forceinline__ int window_chunks(int pwin) {
-  return (15 + (pwin + 7) / 8 + 16 + 15) / 16 + 1;
-}
+
+// The pass engine's policy (pass.cuh): a slice keeps its walk's tokens
+// packed, match << 25 | length or literal << 16 | distance.
+struct Packed {
+  static constexpr int kMinSub = MIN_SUB;
+  uint32_t* toks;
+  int cap;
+  const uint32_t *lit, *dist;
+
+  __device__ __forceinline__ Window window(const uint32_t* win, int off,
+                                           int room) const {
+    return Window{win, lit, dist, off, room};
+  }
+  __device__ __forceinline__ void keep(int k, int, const Sym& y) {
+    if (k < cap) {
+      toks[threadIdx.x * cap + k] = (uint32_t)(y.kind == K_MATCH) << 25 |
+                                    (uint32_t)y.ta << 16 | (uint32_t)y.dist;
+    }
+  }
+  __device__ __forceinline__ Sym token(const Window&, int o, int,
+                                       int k) const {
+    const uint32_t t = toks[o * cap + k];
+    return Sym{t >> 25 ? K_MATCH : K_LIT, 0, (int)((t >> 16) & 511),
+               (int)(t & 0xFFFF)};
+  }
+};
 
 // kStream: the lane is a whole stream (flags and resume are read); without
 // it they are compiled out, and the lane stops at its first end-of-block.
 template <bool kStream>
-__global__ void __launch_bounds__(THREADS) tokenize_static_kernel(
+__global__ void __launch_bounds__(kThreads) tokenize_static_kernel(
     const uint8_t* __restrict__ rows, const int* __restrict__ end_bits,
     int* __restrict__ tk, int* __restrict__ ta, int* __restrict__ tb,
     int* __restrict__ ntok_out, int* __restrict__ total_out,
     int* __restrict__ pos_out, int* __restrict__ err_out,
     const int* __restrict__ resume, int flags, int M, int tok_cap, int pwin) {
   extern __shared__ uint4 win4[];  // the window, then the token slices
-  __shared__ int ent[THREADS], pre[THREADS];
-  __shared__ int wa[WARPS], wb[WARPS];
-  __shared__ int s_term, s_term_adv, s_term_eob, s_exit;
+  __shared__ Shared sh;
   __shared__ uint32_t lit_tab[512], dist_tab[32];
 
-  const int tid = threadIdx.x;
   const int lane = blockIdx.x;
   const uint8_t* row = rows + (size_t)lane * M;
-  int* tkl = tk + (size_t)lane * tok_cap;
-  int* tal = ta + (size_t)lane * tok_cap;
-  int* tbl = tb + (size_t)lane * tok_cap;
+  const Slots out{tk + (size_t)lane * tok_cap, ta + (size_t)lane * tok_cap,
+                  tb + (size_t)lane * tok_cap};
   const long long end = end_bits[lane];
   const long long nbits = 8LL * M;
 
@@ -310,50 +203,38 @@ __global__ void __launch_bounds__(THREADS) tokenize_static_kernel(
     flags = 0;
   }
   // the lane's state: every thread holds the same copy
-  long long pos = resume ? resume[3 * lane] : 0;
-  int tp = resume ? resume[3 * lane + 1] : 0;
-  int total = resume ? resume[3 * lane + 2] : 0;
+  Lane st{resume ? resume[3 * lane] : 0, resume ? resume[3 * lane + 1] : 0,
+          resume ? resume[3 * lane + 2] : 0};
   int mode = M_HEADER, err = ERR_OK, bfinal = 0;
   // what ends the lane: any end-of-block, any block, or a final block
   const bool eob_ends = !(flags & F_GO_ON) || (flags & F_ONE_BLOCK);
   const bool stored_ends = (flags & F_ONE_BLOCK) != 0;
 
-  // subsequences of S bits, one a thread, each with its token slice
-  const int S = sub_bits(pwin);
-  const int nsub = (pwin + S - 1) / S;
-  const int lo = tid * S, hi = min(lo + S, pwin);
-  const bool mine = tid < nsub;
-  const int slice = slice_words(pwin);
-  uint32_t* toks = (uint32_t*)(win4 + window_chunks(pwin));
-  uint32_t* my_toks = toks + tid * slice;
-
+  Packed pol{(uint32_t*)(win4 + window_chunks(pwin)), slice_words(pwin),
+             lit_tab, dist_tab};
   fill_tables(lit_tab, dist_tab);  // read after the first pass's barriers
 
-  auto in_bounds = [&]() {
-    return pos <= nbits && pos < end && tp < tok_cap - 1;
-  };
-
   auto header = [&]() {
-    const uint64_t w = bits_at(row, M, pos);
+    const uint64_t w = bits_at(row, M, st.pos);
     bfinal = (int)(w & 1);
     const int btype = (int)((w >> 1) & 3);
     if (btype == 0) {
-      const long long p = (pos + 3 + 7) & ~7LL;
+      const long long p = (st.pos + 3 + 7) & ~7LL;
       const uint64_t ws = bits_at(row, M, p);
       const int len = (int)(ws & 0xFFFF);
       const bool ok = len == (int)(((ws >> 16) & 0xFFFF) ^ 0xFFFF);
-      if (tid == 0) {  // tp < tok_cap - 1 here
-        tkl[tp] = TK_STORED;
-        tal[tp] = len;
-        tbl[tp] = (int)((p + 32) >> 3);
+      if (threadIdx.x == 0) {  // tp < tok_cap - 1 here
+        out.tk[st.tp] = TK_STORED;
+        out.ta[st.tp] = len;
+        out.tb[st.tp] = (int)((p + 32) >> 3);
       }
-      ++tp;
-      total += len;
-      pos = p + 32 + 8LL * len;
+      ++st.tp;
+      st.total += len;
+      st.pos = p + 32 + 8LL * len;
       mode = !ok ? M_ERROR : (bfinal || stored_ends ? M_DONE : M_HEADER);
       if (!ok) err = ERR_STORED;
     } else if (btype == 1) {
-      pos += 3;
+      st.pos += 3;
       mode = M_TOKENS;
     } else {
       mode = M_ERROR;
@@ -361,124 +242,31 @@ __global__ void __launch_bounds__(THREADS) tokenize_static_kernel(
     }
   };
 
-  auto block_pass = [&]() {
-    const long long base = pos;
-    __syncthreads();  // the last pass is done with its shared memory
-
-    // 1. stage the window: 16-byte chunks from the aligned address at or
-    // before the pass's first byte; a chunk's bytes past the row are
-    // zero-filled, and a chunk wholly past it is not read
-    const uintptr_t first = (uintptr_t)(row + (base >> 3));
-    const uintptr_t row_end = (uintptr_t)(row + M);
-    const uintptr_t g0 = first & ~(uintptr_t)15;
-    const int off_bytes = (int)(first - g0);
-    const int nchunks = (off_bytes + (pwin + 7) / 8 + 16 + 15) / 16 + 1;
-    for (int c = tid; c < nchunks; c += THREADS) {
-      const uintptr_t g = g0 + 16 * (uintptr_t)c;
-      const long long left = (long long)row_end - (long long)g;
-      if (left <= 0) {
-        win4[c] = make_uint4(0, 0, 0, 0);
-      } else {
-        cp_async16(win4 + c, (const void*)g, left < 16 ? (int)left : 16);
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    if (mine) ent[tid] = lo;
-    if (tid == 0) s_term = NONE;
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();
-    const long long room = end - base;
-    const Window w{(const uint32_t*)win4, lit_tab, dist_tab,
-                   8 * off_bytes + (int)(base & 7),
-                   (int)(room < 0 ? -1 : (room > pwin ? pwin : room))};
-
-    // 2. the fixed point of the subsequences' entries; a walk is redone
-    // only where its entry moved
-    Seg seg{0, NONE, 0, 0, 0, 0, false};
-    int walked = -1;
-    while (true) {
-      const int e = mine ? ent[tid] : walked;
-      if (e != walked) {
-        seg = walk(w, e, hi, my_toks);
-        walked = e;
-      }
-      __syncthreads();  // every entry is read before any is replaced
-      bool changed = false;
-      if (tid + 1 < nsub && ent[tid + 1] != seg.exit) {
-        ent[tid + 1] = seg.exit;
-        changed = true;
-      }
-      if (!__syncthreads_or(changed)) break;
-    }
-
-    // 3. the first terminal on the chain, the tokens and bytes before it
-    if (mine && seg.term != NONE) atomicMin(&s_term, seg.term);
-    if (tid == nsub - 1) s_exit = seg.exit;
-    __syncthreads();
-    const int cut = s_term;
-    if (mine && seg.term == cut && cut != NONE) {
-      s_term_adv = seg.term_adv;
-      s_term_eob = seg.term_eob;
-    }
-    const bool live = mine && ent[tid] <= cut;
-    int before_n = live ? seg.n : 0, before_p = live ? seg.produced : 0;
-    int n, produced;
-    scan2(before_n, before_p, n, produced, wa, wb);
-    pre[tid] = before_n;
-    const bool cap_ok = tp + n < tok_cap - 1;
-    const bool far = cap_ok && live && seg.need > total + before_p;
-    const bool too_far = __syncthreads_or(far) != 0;  // pre[] is complete
-
-    // 4. copy the tokens out: warp v writes the slots of its threads'
-    // slices, [pre[32v], pre[32v + 32]), one slot a lane
-    if (cap_ok) {
-      const int v0 = tid & ~31, lane32 = tid & 31;
-      const int stop = v0 + 32 < THREADS ? pre[v0 + 32] : n;
-      int o = v0;  // the slice that holds slot i: pre[o] <= i < pre[o + 1]
-      for (int i = pre[v0] + lane32; i < stop; i += 32) {
-        while (o + 1 < v0 + 32 && pre[o + 1] <= i) ++o;
-        const uint32_t t = toks[o * slice + (i - pre[o])];
-        tkl[tp + i] = (int)(t >> 25);
-        tal[tp + i] = (int)((t >> 16) & 511);
-        tbl[tp + i] = (int)(t & 0xFFFF);
-      }
-    }
-    const bool hit = cut != NONE;
-    const bool eob = hit && s_term_eob;
-    pos = hit ? base + cut + s_term_adv : base + s_exit;
-    if (cap_ok) {
-      tp += n;
-      total += produced;
-    }
-    if ((hit && !eob) || too_far || !cap_ok) {
-      mode = M_ERROR;
-      err = too_far ? ERR_DIST : (!cap_ok ? ERR_OVERFLOW : ERR_BAD_CODE);
-    } else {
-      mode = !eob ? M_TOKENS : (eob_ends || bfinal ? M_DONE : M_HEADER);
-    }
-  };
-
-  if (!(flags & F_LATER) && mode < M_DONE && in_bounds()) header();
-  while (mode < M_DONE && in_bounds()) {
+  if (!(flags & F_LATER) && st.in_bounds(nbits, end, tok_cap)) header();
+  while (mode < M_DONE && st.in_bounds(nbits, end, tok_cap)) {
     if (mode == M_HEADER) header();
-    if (mode == M_TOKENS) block_pass();
+    if (mode == M_TOKENS) {
+      bool eob;
+      const int e = run_pass(pol, sh, win4, row, M, end, pwin, tok_cap, out,
+                             st, eob);
+      if (e != ERR_OK) {
+        mode = M_ERROR;
+        err = e;
+      } else {
+        mode = !eob ? M_TOKENS : (eob_ends || bfinal ? M_DONE : M_HEADER);
+      }
+    }
   }
   const bool clean =
-      mode == M_DONE || (err == ERR_OK && pos >= end && mode == M_HEADER);
+      mode == M_DONE || (err == ERR_OK && st.pos >= end && mode == M_HEADER);
   if (!clean && err == ERR_OK) {
-    err = tp >= tok_cap - 1 ? ERR_OVERFLOW : ERR_INPUT;
+    err = st.tp >= tok_cap - 1 ? ERR_OVERFLOW : ERR_INPUT;
   }
-  if (!resume) {  // fresh buffers: zero the slots past the last token
-    for (int i = tp + tid; i < tok_cap; i += THREADS) {
-      tkl[i] = 0;
-      tal[i] = 0;
-      tbl[i] = 0;
-    }
-  }
-  if (tid == 0) {
-    ntok_out[lane] = tp;
-    total_out[lane] = total;
-    pos_out[lane] = (int)pos;
+  if (!resume) out.zero(st.tp, tok_cap);  // fresh buffers: past the last token
+  if (threadIdx.x == 0) {
+    ntok_out[lane] = st.tp;
+    total_out[lane] = st.total;
+    pos_out[lane] = (int)st.pos;
     err_out[lane] = err;
   }
 }
@@ -491,18 +279,18 @@ extern "C" int tokenize_static_launch(const void* rows, const void* end_bits,
                                       void* err, const void* resume,
                                       int flags, int B, int M, int tok_cap,
                                       int pwin, void* stream) {
-  // one block of THREADS a lane; the window and the token slices take
-  // dynamic shared memory, above 48 KB by an opt-in
-  auto kernel = (resume || flags) ? tokenize_static_kernel<true>
-                                   : tokenize_static_kernel<false>;
+  // one block of kThreads a lane; the window and the token slices take
+  // dynamic shared memory
+  static launch::DynSmem limit_static, limit_stream;
+  const bool stream_lane = resume || flags;
+  auto kernel = stream_lane ? tokenize_static_kernel<true>
+                            : tokenize_static_kernel<false>;
   const size_t smem = 16 * (size_t)window_chunks(pwin) +
-                      4 * (size_t)THREADS * slice_words(pwin);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
+                      4 * (size_t)kThreads * slice_words(pwin);
+  const cudaError_t e =
+      (stream_lane ? limit_stream : limit_static).fit(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)rows, (const int*)end_bits, (int*)tk, (int*)ta,
       (int*)tb, (int*)ntok, (int*)total, (int*)pos, (int*)err,
       (const int*)resume, flags, M, tok_cap, pwin);

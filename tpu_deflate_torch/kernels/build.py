@@ -39,7 +39,7 @@ SIGNATURES = {
                                _I, _I, _I, _I, _I, _P],
     "expand3_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tokenize_dyn_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _P, _I, _I, _I, _I, _P],
+                            _P, _P, _I, _I, _I, _I, _I, _P],
     "resolve_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "expand2_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ent_from_phi_launch": [_P, _P, _P, _I, _P],

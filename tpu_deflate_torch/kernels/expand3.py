@@ -6,7 +6,10 @@ kind << 9 | (ta & 0x1FF), ``tb`` the match distance (or a stored block's
 byte offset in ``rows``), ``tp`` the token count and ``total`` the output
 length.  A token's length is the gap to the next token's offset (to
 ``total`` for the last one), so stored blocks longer than 511 bytes need
-nothing beyond c1.  Returns uint8[B, out_cap]: the bytes, zero past total.
+nothing beyond c1.  A match byte whose source lies before the row takes
+byte 0's value, as in the JAX package.  Returns uint8[B, out_cap]: the
+bytes, zero past total.  The kernel takes one thread block a lane, with
+the row and a parent per byte in shared memory.
 The JAX kernel returns the same values as int32 and takes no stored
 tokens; here stored tokens copy from ``rows``.
 """

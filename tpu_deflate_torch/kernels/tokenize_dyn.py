@@ -10,8 +10,10 @@ symbol starts.  A symbol is decoded by comparison: its code length is the
 first L whose limit lim[L] exceeds the 15-bit MSB-first prefix, its rank
 is prefix >> (15 - L) plus rd[L], and the rank names the symbol.
 
-``tokenize_dyn_batch`` (``csrc/tokenize_dyn.cu``) walks each lane's
-bitstream serially, one thread a lane.  Inputs per lane: rows uint8[B, M],
+``tokenize_dyn_batch`` (``csrc/tokenize_dyn.cu``) decodes each lane with
+one thread block, in the static tokenizer's passes: the symbol starts of
+a pass's window by a fixed-point iteration over subsequences, under the
+lane's tables in shared memory.  Inputs per lane: rows uint8[B, M],
 end_bits int32[B], tab int32[B, TAB_W], starts int32[B], status int32[B]
 and tok0 int32[B].  The block may follow earlier blocks of the lane
 (stored ones): tok0 tokens and tab[TAB_OUTBASE] output bytes came before
@@ -229,7 +231,9 @@ def tokenize_dyn_batch(rows: torch.Tensor, end_bits: torch.Tensor,
 
     Returns (tk, ta, tb, ntok, out_total, end_pos, err), see
     ``kernels.tokenize``.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel, one block a lane, which writes the block's
+    tokens into ``into`` in place and otherwise fills fresh buffers, zero
+    outside the block's tokens."""
     if rows.device.type == "cpu":
         return tokenize_dyn_plain(rows, end_bits, tab, starts, status,
                                   tok0, tok_cap, pwin, into)
@@ -248,8 +252,8 @@ def tokenize_dyn_batch(rows: torch.Tensor, end_bits: torch.Tensor,
     if tab.shape != (B, TAB_W):
         raise ValueError(f"tokenize_dyn_batch: tab {tuple(tab.shape)}")
     dev = rows.device
-    if into is None:
-        tk, ta, tb = (torch.zeros(B, tok_cap, dtype=torch.int32, device=dev)
+    if into is None:  # the kernel zeroes the slots it does not fill
+        tk, ta, tb = (torch.empty(B, tok_cap, dtype=torch.int32, device=dev)
                       for _ in range(3))
     else:
         tk, ta, tb = into
@@ -268,8 +272,8 @@ def tokenize_dyn_batch(rows: torch.Tensor, end_bits: torch.Tensor,
         starts.data_ptr(), status.data_ptr(), tok0.data_ptr(),
         tk.data_ptr(), ta.data_ptr(),
         tb.data_ptr(), ntok.data_ptr(), out_total.data_ptr(),
-        end_pos.data_ptr(), err.data_ptr(), B, M, tok_cap, pwin,
-        build.stream_handle(dev),
+        end_pos.data_ptr(), err.data_ptr(), int(into is None), B, M,
+        tok_cap, pwin, build.stream_handle(dev),
     )
     build.check(code, "tokenize_dyn")
     tokenize_dyn_batch.launches += 1

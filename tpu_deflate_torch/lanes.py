@@ -1,0 +1,146 @@
+"""DEFLATE lanes built by hand, for holding the kernels to their plain
+versions where trouble is likely: dynamic blocks under code lengths of the
+caller's choice (a 48-bit symbol, an incomplete code), and token lanes
+whose matches reach before the start of their row.  ``chip_smoke.py`` and
+the tests build their edge lanes here."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from tpu_deflate_torch.spec import tables as T
+
+
+def bits_to_bytes(fields) -> bytes:
+    """(value, nbits) fields, LSB first -> bytes."""
+    acc = nb = 0
+    out = bytearray()
+    for v, n in fields:
+        acc |= v << nb
+        nb += n
+        while nb >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nb -= 8
+    if nb:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def canonical(lengths) -> dict:
+    """{symbol: (code bit-reversed for LSB-first packing, length)}, RFC 1951
+    3.2.2."""
+    top = max(lengths)
+    count = [0] * (top + 1)
+    for n in lengths:
+        count[n] += n > 0
+    code, nxt = 0, [0] * (top + 1)
+    for b in range(1, top + 1):
+        code = (code + count[b - 1] * (b > 1)) << 1
+        nxt[b] = code
+    out = {}
+    for s, n in enumerate(lengths):
+        if n:
+            out[s] = (int(f"{nxt[n]:0{n}b}"[::-1], 2), n)
+            nxt[n] += 1
+    return out
+
+
+def hand_block(lit, dist, tokens) -> bytes:
+    """A final dynamic block under the code lengths lit[286], dist[30]
+    (each code length sent as a 4-bit code-length code): tokens
+    ("lit", byte), ("match", length, distance), ("bits", value, width),
+    then the end-of-block."""
+    cl = canonical([4] * 16 + [0, 0, 0])  # code lengths 0..15, 4 bits each
+    f = [(1, 1), (2, 2), (286 - 257, 5), (30 - 1, 5), (19 - 4, 4)]
+    f += [(4 if s < 16 else 0, 3) for s in T.CODE_LENGTH_ORDER]
+    f += [cl[n] for n in lit + dist]
+    lc, dc = canonical(lit), canonical(dist)
+    for kind, a, *b in tokens:
+        if kind == "lit":
+            f.append(lc[a])
+        elif kind == "bits":
+            f.append((a, b[0]))
+        else:
+            i = 28 if a == 258 else int(np.searchsorted(T.LENGTH_BASE, a, "right")) - 1
+            j = int(np.searchsorted(T.DIST_BASE, b[0], "right")) - 1
+            f += [lc[257 + i], (a - int(T.LENGTH_BASE[i]), int(T.LENGTH_EXTRA_BITS[i])),
+                  dc[j], (b[0] - int(T.DIST_BASE[j]), int(T.DIST_EXTRA_BITS[j]))]
+    f.append(lc[256])
+    return bits_to_bytes(f)
+
+
+def wide_block() -> bytes:
+    """A block whose widest symbol is 48 bits: a 15-bit code for length
+    symbol 284 (5 extra bits) and for distance symbols 28 and 29 (13 extra
+    bits).  A literal and 96 matches of 258 at distance 1 first make 24769
+    bytes of output for them to reach into; then every distance code once,
+    its extra bits drawn from a fixed seed."""
+    lit = [0] * 286
+    lit[97], lit[285] = 1, 2
+    for k, s in enumerate(range(98, 109)):
+        lit[s] = 3 + k
+    lit[256], lit[109], lit[284] = 14, 15, 15
+    dist = [0] * 30
+    for s in range(14):
+        dist[s] = s + 1
+    dist[28] = dist[29] = 15
+    toks = [("lit", 97)] + [("match", 258, 1)] * 96
+    toks += [("lit", s) for s in range(98, 110)]
+    toks += [("match", 227 + 17, 24577 + 150),  # 15 + 5 + 15 + 13 bits
+             ("match", 230, 16385 + 4000)]
+    rng = np.random.default_rng(4)
+    for s in range(14):
+        d = int(T.DIST_BASE[s]) + int(rng.integers(0, 1 << int(T.DIST_EXTRA_BITS[s])))
+        toks += [("match", 258, d), ("lit", 97 + s % 12)]
+    return hand_block(lit, dist, toks)
+
+
+def bad_code_block() -> bytes:
+    """A block under an incomplete literal/length code (codes 0, 10, 110,
+    1110): after a few literals, the unused code 1111."""
+    lit = [0] * 286
+    lit[97], lit[98], lit[99], lit[256] = 1, 2, 3, 4
+    dist = [0] * 30
+    dist[0] = 1
+    return hand_block(lit, dist, [("lit", 97), ("lit", 98), ("lit", 99),
+                                  ("lit", 97), ("bits", 15, 4), ("lit", 97)])
+
+
+# literal 'A', literal 'B', a match of length 4 at distance 5, literal 'C':
+# its bytes, the match's first three from before the row taking byte 0's value
+FAR_LANE = [(0, 65, 0), (0, 66, 0), (1, 4, 5), (0, 67, 0)]
+FAR_BYTES = [65, 66, 65, 65, 65, 65, 67]
+
+
+def far_token_lanes(seed: int, B: int = 4, K: int = 96):
+    """(tk, ta, tb, tp) int32 numpy: FAR_LANE, then seeded lanes of
+    literals and matches (distances to 256, lengths 3 to 258) where about a
+    third of the matches reach before the row, overlapping runs among them,
+    and a last lane that starts with a match."""
+    rng = np.random.default_rng(seed)
+    tk, ta, tb = (np.zeros((B, K), np.int32) for _ in range(3))
+    tp = np.zeros(B, np.int32)
+    for b in range(B):
+        if b == 0:
+            toks = FAR_LANE
+        else:
+            toks, pos = [], 0
+            if b == B - 1:  # the row's first byte is a match byte
+                toks.append((1, 5, 3))
+                pos = 5
+            while len(toks) < K - 2:
+                if rng.random() < 0.4:
+                    toks.append((0, int(rng.integers(0, 256)), 0))
+                    pos += 1
+                    continue
+                n = int(rng.integers(3, 259))
+                far = rng.random() < 0.35
+                d = int(rng.integers(pos + 1, pos + 257)) if far else int(
+                    rng.integers(1, pos + 1)) if pos else 1
+                toks.append((1, n, min(d, 256)))
+                pos += n
+        tp[b] = len(toks)
+        for k, (kind, a, d) in enumerate(toks):
+            tk[b, k], ta[b, k], tb[b, k] = kind, a, d
+    return tk, ta, tb, tp
