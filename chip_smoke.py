@@ -34,12 +34,21 @@ Phases, each of which raises on failure:
                pipeline with one lane; both expanders where matches reach
                before the row, and expand_fused3 on a distance-1 run of
                64 KiB, a stored token of the whole row and rows of 4096
-               bytes.  Before all of these, the process's first expansion:
+               bytes; match2 on 8 MiB of random bytes and of zeros, and on
+               lanes cut short at (window, max_match) (1, 3), (100, 10) and
+               (256, 258); the bit-pack on the dynamic path's entries, on
+               the encoder's entries over zeros at max_match 258, on
+               seeded edge lanes (dead head and tail, no live entry, runs
+               over slabs), on the main path's batch with its last lane
+               and with every lane cut to N / 8 and on the call of a
+               one_block compress of 1.125 MiB (runs over most of a lane,
+               timed), and its launches (its two kernels, no memset).
+               Before all of these, the process's first expansion:
                decompress of a stream of 12000 bytes, one row of 16384
   4. main    — 8 MiB of tests/data/corpus.bin.gz through compress_indexed
                and decompress_indexed with DEFAULT; stock zlib checks the
                stream; every kernel must have launched; the device time of
-               the decode and its split by kernel
+               the encode and the decode and their splits by kernel
   5. stored  — the same with 256 KiB of seeded random bytes spliced in,
                so stored lanes go through the tokenizer and the expander
   6. dynamic — the 8 MiB through compress_indexed and decompress_indexed
@@ -376,6 +385,7 @@ def main() -> None:
         DEFAULT,
         DeflateConfig,
         DeflateError,
+        compress,
         compress_indexed,
         decompress,
         decompress_indexed,
@@ -619,6 +629,135 @@ def main() -> None:
             library_device_ms=library_dev_ms, serial_bound_ms=serial_ms,
             launches_by_path={},
         ))
+
+    # the matcher where its time and its edges lie: 8 MiB of seeded random
+    # bytes (nothing matches: every chain walk runs out of the window) and
+    # of zeros (every position matches at distance 1), timed beside the corpus;
+    # then lanes cut short (bytes past n are 7) at the (window, max_match)
+    # corners, corpus, zeros and random lanes among them
+    mgen = torch.Generator().manual_seed(SEED + 1)
+    rnd = torch.randint(0, 256, (B, chunk), generator=mgen, dtype=torch.uint8).to(dev)
+    for what, mrows in (("random bytes", rnd), ("zeros", torch.zeros_like(chunks))):
+        margs = (mrows, lens, cfg.window, cfg.max_match)
+        err = max_abs_err(match_bitplane_batch(*margs), match_bitplane_plain(*margs))
+        require(err == 0, f"match_bitplane_batch differs from plain on {what} by {err}")
+        dev_ms = device_ms(lambda: match_bitplane_batch(*margs))
+        host_ms = cuda_ms(lambda: match_bitplane_batch(*margs), reps=10)
+        log(f"kernel match_bitplane_batch on {SIZE} B of {what}: equal to "
+            f"plain; device {fmt_ms(dev_ms)}, host-paced {host_ms:.4f} ms (the "
+            f"corpus: device {fmt_ms(results[0]['device_ms'])}) on {name}, {smi}")
+    short = chunks[:16].clone()
+    short[8:12] = 0
+    short[12:] = rnd[:4]
+    slens = torch.tensor([chunk - 977 * r - r % 3 for r in range(16)],
+                         dtype=torch.int32, device=dev)
+    short = torch.where(torch.arange(chunk, device=dev) >= slens[:, None], 7, short)
+    short = short.to(torch.uint8)
+    for mwin, mmax in ((1, 3), (100, 10), (256, 258)):
+        margs = (short, slens, mwin, mmax)
+        got = match_bitplane_batch(*margs)
+        err = max_abs_err(got, match_bitplane_plain(*margs))
+        require(err == 0, f"match_bitplane_batch differs from plain at window "
+                f"{mwin}, max_match {mmax} by {err}")
+        require(int(got[1].max()) == mmax, f"longest match {int(got[1].max())}")
+    log(f"kernel match_bitplane_batch: equal to plain on 16 lanes cut short "
+        f"(corpus, zeros, random) at (window, max_match) (1, 3), (100, 10), "
+        f"(256, 258)")
+
+    # the bit-pack on the dynamic path's entries (C = 3), on the encoder's
+    # entries over zeros at max_match 258 (runs of one index of at least
+    # 257 entries, 515 with dynamic trees, whose codes are shorter), and on
+    # seeded entries: a dead head of two values, a dead tail, a lane with no
+    # live entry (all before, all after), runs over one and over two slabs
+    # of 2048, gaps of 40
+    dist_d, length_d = match_bitplane_batch(chunks, lens, dcfg.window, dcfg.max_match)
+    dvals, dnbs, doffs, _, _ = E._encode_emissions(chunks, lens, finals, dist_d,
+                                                   length_d, True)
+    didx, dch = E._bitpack_entries(dvals, dnbs, doffs, E._emission_bits(dcfg))
+    pack_cases = [("the dynamic path's entries", didx, dch, M + 8)]
+    zrows = torch.zeros(4, chunk, dtype=torch.uint8, device=dev)
+    zlens = torch.full((4,), chunk, dtype=torch.int32, device=dev)
+    zdist, zlen = match_bitplane_batch(zrows, zlens, 256, 258)
+    for zdyn in (False, True):
+        zcfg = DeflateConfig(window=256, max_match=258, dynamic_encode=zdyn)
+        zv, znb, zoff, _, _ = E._encode_emissions(zrows, zlens, finals[-4:], zdist,
+                                                  zlen, zdyn)
+        zidx, zch = E._bitpack_entries(zv, znb, zoff, E._emission_bits(zcfg))
+        run = int(torch.unique_consecutive(zidx[0], return_counts=True)[1].max())
+        require(run >= (515 if zdyn else 257), f"longest run {run}")
+        pack_cases.append((f"zeros at max_match 258, runs of {run}", zidx, zch, M + 8))
+    K = 3 * 2048 + 5
+    step = torch.randint(0, 5, (8, K), generator=mgen)
+    step[:, ::97] = 40
+    sidx = torch.cumsum(step, 1)
+    ssize = int(sidx[:, -1].max()) + 40
+    sidx[0, :50], sidx[0, 50:60] = -1, -7
+    sidx[1, -300:] = ssize + 5
+    sidx[2], sidx[3] = -1, ssize + 1
+    sidx[4, 100:5100] = sidx[4, 100].clone()
+    sidx[5, 2040 : 2 * 2048 + 10] = sidx[5, 2040].clone()
+    svals = torch.randint(0, 1 << 16, (8, 3, K), generator=mgen, dtype=torch.int32)
+    pack_cases.append(("seeded edge lanes", sidx.to(torch.int32).to(dev),
+                       svals.to(dev), ssize))
+    # runs of one index over most of a lane: every entry past n takes the
+    # offset of the end-of-block code.  The main path's batch with its last
+    # lane cut to N / 8 (a compress whose last chunk is partial) and with
+    # every lane cut so, static (C = 2) and dynamic (C = 3); then the one
+    # call of a one_block compress of 1.125 MiB, one lane of 2 MiB, static
+    # and dynamic.  Each is timed.
+    timed = []
+    for cut in ("last lane", "every lane"):
+        clens = lens.clone()
+        if cut == "last lane":
+            clens[-1] = chunk // 8
+        else:
+            clens[:] = chunk // 8
+        for ccfg in (cfg, dcfg):
+            cd, cl = match_bitplane_batch(chunks, clens, ccfg.window, ccfg.max_match)
+            cv, cnb, coff, _, _ = E._encode_emissions(chunks, clens, finals, cd, cl,
+                                                      ccfg.dynamic_encode)
+            cidx, cch = E._bitpack_entries(cv, cnb, coff, E._emission_bits(ccfg))
+            run = int(torch.unique_consecutive(cidx[-1], return_counts=True)[1].max())
+            timed.append((f"{cut} cut to N / 8, C = {cch.shape[1]}, a run of {run}",
+                          cidx, cch, M + 8))
+    ob_data = data[: 9 << 17]
+    for ob_dyn in (False, True):
+        ob_cfg = DeflateConfig(one_block=True, dynamic_encode=ob_dyn)
+        ob_calls = []
+        orig = capture(E, "mono_scatter_add", ob_calls)
+        ob_stream = compress(ob_data, ob_cfg, device=dev)
+        E.mono_scatter_add = orig
+        require(zlib.decompress(ob_stream) == ob_data, "zlib rejects a one_block stream")
+        require(len(ob_calls) == 1, f"{len(ob_calls)} bit-packs in a one_block compress")
+        oidx, och, osize = ob_calls[0]
+        run = int(torch.unique_consecutive(oidx[0], return_counts=True)[1].max())
+        timed.append((f"a one_block compress of {len(ob_data)} B, C = "
+                      f"{och.shape[1]}, K = {oidx.shape[1]}, a run of {run}",
+                      oidx, och, osize))
+    for what, pidx, pvals, psize in pack_cases + timed:
+        err = max_abs_err((mono_scatter_add(pidx, pvals, psize),),
+                          (mono_scatter_add_plain(pidx, pvals, psize),))
+        require(err == 0, f"mono_scatter_add differs from plain on {what} by {err}")
+        log(f"kernel mono_scatter_add: equal to plain on {what} "
+            f"({tuple(pvals.shape)} -> size {psize})")
+    for what, pidx, pvals, psize in timed:
+        pargs = (pidx, pvals, psize)
+        pms = device_ms(lambda: mono_scatter_add(*pargs))
+        pbound = bound(*work_scatter(pargs, (mono_scatter_add(*pargs),)))[0]
+        log(f"kernel mono_scatter_add on {what}: device {fmt_ms(pms)}, bound "
+            f"{pbound:.5f} ms on {name}, {smi}")
+    pack_dyn_ms = device_ms(lambda: mono_scatter_add(didx, dch, M + 8))
+    pack_split = device_split(lambda: mono_scatter_add(idx, ch, M + 8), 5)
+    require(all("mono_scatter_add" in k for k in pack_split),
+            f"the bit-pack launches more than its kernels: {sorted(pack_split)}")
+    memset_ms = device_ms(lambda: torch.zeros(B, ch.shape[1], M + 8,
+                                              dtype=torch.int32, device=dev))
+    log(f"kernel mono_scatter_add: device {fmt_ms(results[1]['device_ms'])} "
+        f"static (C = {ch.shape[1]}), {fmt_ms(pack_dyn_ms)} dynamic (C = "
+        f"{dch.shape[1]}, {dch.shape[2]} entries a lane); it launches its "
+        f"two kernels {sorted(pack_split)} and no memset (the memset of its "
+        f"output by torch.zeros, gone: "
+        f"{fmt_ms(memset_ms)}) on {name}, {smi}")
 
     # the static tokenizer on lanes that end in each of its errors, at the
     # decode path's pass and at passes of 1088 bits, over a token capacity
@@ -886,6 +1025,21 @@ def main() -> None:
         f"decompress_indexed {len(data) / dec_s / 1e9:.4f} GB/s "
         f"(first call, host clock) on {name}, {smi}")
     enc_ms = cuda_ms(lambda: E.encode_blocks_batch(chunks, lens, finals, cfg), 5)
+    esplit = device_split(lambda: E.encode_blocks_batch(chunks, lens, finals, cfg), 5)
+    parts = {"match2": 0.0, "mono_scatter_add": 0.0, "memsets": 0.0}
+    for k, v in esplit.items():
+        part = next((p for p in ("match2", "mono_scatter_add") if p in k), None)
+        if part is None and ("memset" in k.lower() or "Fill" in k):
+            part = "memsets"
+        if part is not None:
+            parts[part] += v
+    log(f"static encode_blocks_batch, device time by profiler: "
+        f"{sum(esplit.values()):.4f} ms, of which match_bitplane_batch "
+        f"{parts['match2']:.4f} ms, mono_scatter_add "
+        f"{parts['mono_scatter_add']:.4f} ms, memsets and fills "
+        f"{parts['memsets']:.4f} ms, the rest "
+        f"{sum(esplit.values()) - sum(parts.values()):.4f} ms in "
+        f"{len(esplit)} kinds of launch on {name}, {smi}")
     dec_ms = cuda_ms(
         lambda: D.decode_rows_batch(rows, ends, out_cap=chunk, tok_cap=tok_cap), 5
     )

@@ -4,6 +4,8 @@ encode_blocks_batch: identical bytes, lengths and token counts."""
 from __future__ import annotations
 
 import dataclasses
+import gzip
+import pathlib
 import zlib
 
 import numpy as np
@@ -15,8 +17,10 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from tests.corpora import corpus  # noqa: E402
+from tpu_deflate.api import compress as j_compress  # noqa: E402
 from tpu_deflate.config import DeflateConfig as JConfig  # noqa: E402
 from tpu_deflate.ops.encode import encode_blocks_batch as j_encode  # noqa: E402
+from tpu_deflate_torch.api import compress as t_compress  # noqa: E402
 from tpu_deflate_torch.config import DeflateConfig as TConfig  # noqa: E402
 from tpu_deflate_torch.ops.encode import encode_blocks_batch  # noqa: E402
 
@@ -74,3 +78,32 @@ def test_unported_encoder_options_raise():
         cfg = TConfig(**{**dataclasses.asdict(TConfig()), **fields})
         with pytest.raises(NotImplementedError):
             encode_blocks_batch(data, n, f, cfg)
+
+
+CORPUS = pathlib.Path(__file__).resolve().parent / "data" / "corpus.bin.gz"
+
+
+def _stream_input(name):
+    rng = np.random.default_rng(1951)
+    if name == "zeros":
+        return bytes(5000)
+    if name == "trits":  # seeded bytes from {0, 1, 2}: short matches everywhere
+        return rng.integers(0, 3, 9000).astype(np.uint8).tobytes()
+    if name == "runs":
+        return corpus(6, 12000)
+    return gzip.decompress(CORPUS.read_bytes())[:16000]
+
+
+@pytest.mark.parametrize("name", ["zeros", "trits", "runs", "corpus"])
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_compress_equal_max_match_48(dynamic, name):
+    """The whole stream at window 256, max_match 48: a run of one index in
+    the bit-pack is 47 entries (about 94 with dynamic trees).  Every input
+    is one chunk of 16 KiB, so the JAX package compiles once a
+    configuration."""
+    fields = dict(chunk_size=1 << 14, window=256, max_match=48,
+                  dynamic_encode=dynamic)
+    data = _stream_input(name)
+    got = t_compress(data, TConfig(**fields), device="cpu")
+    assert got == j_compress(data, JConfig(**fields))
+    assert zlib.decompress(got) == data

@@ -33,7 +33,7 @@ _I = ctypes.c_int
 # sizes as int (ctypes would otherwise pass a pointer as a 32-bit int).
 SIGNATURES = {
     "match2_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "mono_scatter_add_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "mono_scatter_add_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mono_compact_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tokenize_static_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _P],

@@ -4,9 +4,9 @@
 
 Entries with idx outside [0, size) drop out.  Two kernels compute it:
 
-  mono_scatter_add  the encoder's bit-pack; indices nondecreasing (bit
-                    offsets / 8), which the TPU kernel relies on and the
-                    CUDA kernel does not need.  The output of
+  mono_scatter_add  the encoder's bit-pack (bit offsets / 8).  Both the
+                    TPU kernel and the CUDA kernel rely on the indices'
+                    order (see its docstring).  The output of
                     ``tpu_deflate.kernels.monotone.mono_scatter_add``.
   mono_compact      the decoder's code-length paint, a small output per
                     lane.  The output of
@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 
 from tpu_deflate_torch.kernels import build
+
+_SLAB = 2048  # entries a block of the bit-pack (kPackSlab in csrc/monotone.cu)
 
 
 def mono_scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor,
@@ -38,7 +40,17 @@ def mono_scatter_add(idx: torch.Tensor, vals: torch.Tensor,
                      size: int) -> torch.Tensor:
     """idx int32[B, K], vals int32[B, C, K] -> int32[B, C, size].
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    Precondition, as the TPU kernel's: in each lane the live indices (those
+    in [0, size)) are nondecreasing; dead entries carry an index < 0 before
+    the first live one (the head) or >= size after the last (the tail), and
+    drop out.  The encoder's indices, bit offsets / 8 of an exclusive
+    cumsum, meet it.  It is not checked: that would need a read back to
+    the host.  The plain version takes any indices.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (two
+    launches: the sums of runs that cross a slab of 2048 entries into a
+    scratch of B * ceil(K / 2048) * C words, then the pack), which writes
+    every element of the output."""
     if idx.device.type == "cpu":
         return mono_scatter_add_plain(idx, vals, size)
     if idx.dtype != torch.int32 or vals.dtype != torch.int32:
@@ -48,12 +60,13 @@ def mono_scatter_add(idx: torch.Tensor, vals: torch.Tensor,
     if idx.shape != (B, K):
         raise ValueError(f"mono_scatter_add: idx {tuple(idx.shape)} vs "
                          f"vals {tuple(vals.shape)}")
-    out = torch.zeros(B, C, size, dtype=torch.int32, device=vals.device)
-    if B * K == 0:
+    out = torch.empty(B, C, size, dtype=torch.int32, device=vals.device)
+    if out.numel() == 0:
         return out
+    lead = torch.empty(B, -(-K // _SLAB), C, dtype=torch.int32, device=vals.device)
     code = build.library().mono_scatter_add_launch(
-        idx.data_ptr(), vals.data_ptr(), out.data_ptr(), B, C, K, size,
-        build.stream_handle(idx.device),
+        idx.data_ptr(), vals.data_ptr(), lead.data_ptr(), out.data_ptr(), B, C,
+        K, size, build.stream_handle(idx.device),
     )
     build.check(code, "mono_scatter_add")
     mono_scatter_add.launches += 1
