@@ -42,7 +42,17 @@ Phases, each of which raises on failure:
                over slabs), on the main path's batch with its last lane
                and with every lane cut to N / 8 and on the call of a
                one_block compress of 1.125 MiB (runs over most of a lane,
-               timed), and its launches (its two kernels, no memset).
+               timed), and its launches (its two kernels, no memset);
+               expand_fused2 on every segment and ent_from_phi on every
+               block's maps of the -6 and stored-mix -6 decodes, then on
+               edge lanes (tpu_deflate_torch.lanes: a match across a tile,
+               a tile copied whole from the one before, sources 32768
+               back and before the row, distance 0, no token, a total
+               and a row that are no tile multiple) and edge maps (T = 32,
+               256, 8192; orbits that stop in the first and the last tile,
+               entries of 64..190 and 192..255; p0 = 0, 5, 63, 64), and
+               expand_fused2 timed on a distance-1 run of 1 MiB, with the
+               longest chase across tiles its data needs as a second bound.
                Before all of these, the process's first expansion:
                decompress of a stream of 12000 bytes, one row of 16384
   4. main    — 8 MiB of tests/data/corpus.bin.gz through compress_indexed
@@ -121,6 +131,9 @@ SYMBOL_OPS = 32  # integer operations to decode one symbol, about
 # starts of a window in parallel, so their bound is bytes alone.
 SM_HZ = 1.98e9
 STEP_CYCLES = 20
+# a step of expand_fused2's chase is a read through L2, taken here as 300
+# cycles (an assumption, not a measurement)
+L2_CYCLES = 300
 
 # the counted run whose count is a kernel's "launches"
 OWN_PATH = {
@@ -202,6 +215,40 @@ def work_expand(tp, total, out):
 
 def work_resolve(args, outs):
     return nbytes(*args, outs[0]), 2 * outs[0].numel()
+
+
+def expand2_chain(args, tile: int) -> int:
+    """The longest chase that expand_fused2's data needs: each byte's parent
+    by the kernel's rule, jumped inside its tile of ``tile`` bytes to its
+    root there or to the first byte before the tile on its chain; a byte
+    of the second kind takes one read through L2 more than that byte."""
+    import torch
+
+    off, c1, tb, tp, total, out_cap = args
+    B, K = off.shape
+    longest = 0
+    for b in range(B):
+        n, tot = min(max(int(tp[b]), 0), K), min(max(int(total[b]), 0), out_cap)
+        if n == 0 or tot == 0:
+            continue
+        q = torch.arange(tot, device=off.device)
+        own = torch.searchsorted(off[b, :n], q.to(off.dtype), right=True) - 1
+        m = own.clamp_min(0)
+        c, d, o = c1[b, m], tb[b, m].long(), off[b, m].long()
+        match = (own >= 0) & (((c >> 9) & 3) == 1) & (d > 0) & (o <= q)
+        ref = torch.where(match, (o - d + (q - o) % d.clamp_min(1)).clamp_min(0), q)
+        t0 = q // tile * tile
+        while True:
+            nxt = torch.where(ref >= t0, ref[ref], ref)
+            if torch.equal(nxt, ref):
+                break
+            ref = nxt
+        steps = torch.zeros_like(q)
+        for j in range(0, tot, tile):  # a tile's chases end in earlier tiles
+            r = ref[j : j + tile]
+            steps[j : j + tile] = torch.where(r < j, 1 + steps[r], 0)
+        longest = max(longest, int(steps.max()))
+    return longest
 
 
 def require(ok: bool, what: str) -> None:
@@ -398,6 +445,7 @@ def main() -> None:
         visited_from_adv,
         visited_from_adv_plain,
     )
+    from tpu_deflate_torch.kernels.expand2 import TILE as E2_TILE
     from tpu_deflate_torch.kernels.expand2 import expand_fused2, expand_fused2_plain
     from tpu_deflate_torch.kernels.expand3 import expand_fused3, expand_fused3_plain
     from tpu_deflate_torch.kernels.match2 import (
@@ -582,13 +630,17 @@ def main() -> None:
          "tpu_deflate/kernels/tokenize_dyn.py:465", tokenize_dyn_hier,
          tokenize_dyn_hier_plain, blocks_in[mid], work_hier, None),
     ]
-    # each kernel's chain of dependent steps: log2 of a chase's tiles or
-    # positions; for the tile-parallel tokenizer a map chain in a tile (32),
-    # the composition over the tiles and a tile's walk (33)
+    # each kernel's chain of dependent steps and the cycles of a step:
+    # log2 of a chase's tiles or positions; for the tile-parallel tokenizer
+    # a map chain in a tile (32), the composition over the tiles and a
+    # tile's walk (33); for expand_fused2 the longest chase its data needs
     serial_steps = {
-        "ent_from_phi": lambda a, o: a[0].shape[2].bit_length() - 1,
-        "visited_from_adv": lambda a, o: (a[0].numel() + 1).bit_length(),
-        "tokenize_dyn_hier": lambda a, o: 32 + (a[4] // 64).bit_length() - 1 + 33,
+        "ent_from_phi": (lambda a, o: a[0].shape[2].bit_length() - 1, STEP_CYCLES),
+        "visited_from_adv": (lambda a, o: (a[0].numel() + 1).bit_length(),
+                             STEP_CYCLES),
+        "tokenize_dyn_hier": (lambda a, o: 32 + (a[4] // 64).bit_length() - 1 + 33,
+                              STEP_CYCLES),
+        "expand_fused2": (lambda a, o: expand2_chain(a, E2_TILE), L2_CYCLES),
     }
     results = []
     for kname, src, replaces, kern, plain, args, work, library in cases:
@@ -610,11 +662,19 @@ def main() -> None:
         bound_ms, bound_by = bound(*work(args, got))
         serial_ms = None
         if kname in serial_steps:
-            steps = serial_steps[kname](args, got)
-            serial_ms = steps * STEP_CYCLES / SM_HZ * 1e3
+            steps_of, cycles = serial_steps[kname]
+            steps = steps_of(args, got)
+            serial_ms = steps * cycles / SM_HZ * 1e3
             log(f"kernel {kname}: {steps} dependent steps, "
-                f"{ms / steps * 1e6:.1f} ns a step; serial bound "
-                f"{serial_ms:.5f} ms at {STEP_CYCLES} cycles a step")
+                f"{ms / max(steps, 1) * 1e6:.1f} ns a step; serial bound "
+                f"{serial_ms:.5f} ms at {cycles} cycles a step")
+        if kname == "tokenize_dyn_hier":
+            split = device_split(lambda: kern(*args), 10)
+            ent_part = sum(v for k, v in split.items() if "ent_kernel" in k)
+            log(f"kernel tokenize_dyn_hier: device {sum(split.values()):.4f} ms, "
+                f"without ent_kernel {sum(split.values()) - ent_part:.4f} ms; "
+                "by launch: " + ", ".join(f"{k[:48]} {v:.4f}"
+                                          for k, v in sorted(split.items())))
         lanes = got[0].shape[0]
         log(f"kernel {kname}: equal to plain on {lanes} lanes; device "
             f"{fmt_ms(dev_ms)}, host-paced {ms:.4f} ms (plain {plain_ms:.3f} "
@@ -986,6 +1046,60 @@ def main() -> None:
         f"expand_fused2 on a distance-1 run of {run} bytes and {n_far} "
         f"matches at distances to 32768 equal to plain, {run_ms:.3f} ms "
         f"on {name}, {smi}")
+    # the distance-1 run of 1 MiB alone: every tile copies from the one
+    # before it, the longest chase a row can have
+    args1 = tuple(x[:1] for x in args2[:5]) + (row_cap,)
+    chase1 = expand2_chain(args1, E2_TILE)
+    run1_dev = device_ms(lambda: expand_fused2(*args1))
+    run1_ms = cuda_ms(lambda: expand_fused2(*args1), reps=10)
+    run1_bound = bound(*work_expand(args1[3], args1[4], expand_fused2(*args1)))[0]
+    log(f"kernel expand_fused2 on the distance-1 run of {run} bytes (B = 1): "
+        f"device {fmt_ms(run1_dev)}, host-paced {run1_ms:.4f} ms; a chase of "
+        f"{chase1} steps; bound {run1_bound:.5f} ms by bytes, serial "
+        f"{chase1 * L2_CYCLES / SM_HZ * 1e3:.5f} ms on {name}, {smi}")
+
+    # expand_fused2 on every segment and ent_from_phi on every block's maps
+    # that the -6 and stored-mix decodes above handed them, then on edge
+    # lanes and maps built here
+    for a in segs:
+        require(torch.equal(expand_fused2(*a), expand_fused2_plain(*a)),
+                f"expand_fused2 differs from plain on a segment of {a[5]} bytes")
+    for a in maps:
+        require(torch.equal(ent_from_phi(*a), ent_from_phi_plain(*a)),
+                "ent_from_phi differs from plain on a block's maps")
+    log(f"kernels expand_fused2 and ent_from_phi: equal to plain on all "
+        f"{len(segs)} segments and all {len(maps)} blocks' maps of the -6 and "
+        f"stored-mix -6 decodes")
+    enames, etk5, eta5, etb5, etp5, ecut, ecap = L.expand2_edge_lanes(SEED, E2_TILE)
+    etk5, eta5, etb5, etp5, ecut = (torch.from_numpy(x).to(dev)
+                                    for x in (etk5, eta5, etb5, etp5, ecut))
+    eoff5, ec15, etot5 = X._expand_inputs(etk5, eta5, etp5)
+    etot5 = torch.where(ecut >= 0, ecut, etot5)
+    args5 = (eoff5, ec15, etb5, etp5, etot5, ecap)
+    require(torch.equal(expand_fused2(*args5), expand_fused2_plain(*args5)),
+            f"expand_fused2 differs from plain on the edge lanes {enames}")
+    for i, lane in enumerate(enames):  # each lane alone, and at a row of 16 bytes more
+        for cap in (ecap, ecap + 16 - ecap % 16):
+            a = tuple(x[i : i + 1] for x in args5[:5]) + (cap,)
+            require(torch.equal(expand_fused2(*a), expand_fused2_plain(*a)),
+                    f"expand_fused2 differs from plain on the edge lane {lane} "
+                    f"at a row of {cap}")
+    log(f"kernel expand_fused2: equal to plain on edge lanes {enames} at a row "
+        f"of {ecap} bytes (tiles of {E2_TILE}), together and each alone")
+    n_ent = 0
+    for T in (32, 256, 8192):
+        for kind in ("random", "stops_first", "stops_last", "high"):
+            phiP = torch.from_numpy(L.ent_edge_maps(T, kind, SEED + T)).to(dev)
+            for p0v in (0, 5, 63, 64):
+                p0 = torch.tensor([p0v], dtype=torch.int32, device=dev).reshape(())
+                got = ent_from_phi(phiP, p0)
+                require(torch.equal(got, ent_from_phi_plain(phiP, p0)),
+                        f"ent_from_phi differs from plain at T = {T}, {kind}, "
+                        f"p0 = {p0v}")
+                n_ent += 1
+    log(f"kernel ent_from_phi: equal to plain on {n_ent} edge cases (T = 32, "
+        f"256, 8192; orbits that stop in the first and in the last tile, "
+        f"entries of 64..190 and 192..255; p0 = 0, 5, 63, 64)")
 
     def counted(path: str, drive, must):
         """One counted run of a main path: every kernel's count is set to
@@ -1345,9 +1459,15 @@ def main() -> None:
                 f"rows by {err}")
         ms = cuda_ms(lambda: fn(*args), reps=3)
         dev_ms = device_ms(lambda: fn(*args), reps=3)
+        extra = ""
+        if f == "expand_fused2":
+            chase = expand2_chain(args, E2_TILE)
+            extra = (f"; bound {bound(*work_expand(args[3], args[4], got[0]))[0]:.5f}"
+                     f" ms by bytes, serial {chase * L2_CYCLES / SM_HZ * 1e3:.5f}"
+                     f" ms (a chase of {chase} steps)")
         log(f"kernel {f} on the long rows: equal to plain on 8 lanes of "
             f"{tuple(args[0].shape[1:])}; device {fmt_ms(dev_ms)}, "
-            f"host-paced {ms:.4f} ms on {name}, {smi}")
+            f"host-paced {ms:.4f} ms{extra} on {name}, {smi}")
     require(seen[3][0][5] == 1 << 20, f"long-row expansion at {seen[3][0][5]}")
 
     for r in results:

@@ -1,5 +1,5 @@
-// Pointer jumping over rows of device memory, shared by resolve.cu and
-// expand2.cu: ptr[b][p] is a position on p's parent chain, and a round
+// Pointer jumping over rows of device memory, for resolve.cu: ptr[b][p]
+// is a position on p's parent chain, and a round
 // replaces it by ptr[b][ptr[b][p]], in place, until every pointer rests on
 // its chain's root (a position that points at itself).
 //

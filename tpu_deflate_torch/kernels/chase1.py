@@ -27,6 +27,7 @@ from tpu_deflate_torch.kernels import build
 
 TILE = 64
 STOP = 191  # a transfer-map entry whose orbit ended in the tile
+ENT_RUN = 64  # csrc/chase1.cu's kRun: tiles one block of ent_from_phi composes
 
 
 def _check_p0(name: str, p0: torch.Tensor, device) -> None:
@@ -79,9 +80,13 @@ def ent_from_phi(phiP: torch.Tensor, p0: torch.Tensor) -> torch.Tensor:
         return ent_from_phi_plain(phiP, p0)
     build.require_cuda("ent_from_phi", phiP, p0)
     ent = torch.empty(1, 1, T, dtype=torch.int32, device=phiP.device)
+    # an arrival counter, each block's composite and every tile's prefix
+    # map, 16 words a map (csrc/chase1.cu, ENT_RUN tiles a block)
+    scratch = torch.empty(4 + 16 * (T // min(T, ENT_RUN) + T),
+                          dtype=torch.int32, device=phiP.device)
     code = build.library().ent_from_phi_launch(
-        phiP.data_ptr(), p0.data_ptr(), ent.data_ptr(), T,
-        build.stream_handle(phiP.device))
+        phiP.data_ptr(), p0.data_ptr(), ent.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), T, build.stream_handle(phiP.device))
     build.check(code, "ent_from_phi")
     ent_from_phi.launches += 1
     return ent

@@ -7,12 +7,14 @@ match distances up to the RFC window of 32768 (the kernel takes any), and
 no stored tokens, as ``tpu_deflate.kernels.expand2.expand_fused2``: a
 batch with a stored token goes through ``kernels.resolve``.  Returns
 uint8[B, out_cap]: the bytes, zero past total (the JAX kernel returns the
-same values as int32).
+same values as int32).  The kernel expands the row in output tiles of
+``TILE`` bytes in one launch; ``sync`` holds its ticket counter and a
+flag a tile, zeroed by the launcher, and ``chains`` the table of each
+byte's value or earlier position through which tiles resolve bytes
+copied from earlier tiles.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 
@@ -20,6 +22,7 @@ from tpu_deflate_torch.kernels import build
 from tpu_deflate_torch.kernels.expand3 import expand_fused3_plain
 
 MAX_OUT_CAP = 1 << 20
+TILE = 8192  # csrc/expand2.cu's kTile: output bytes a block expands
 
 
 def expand_fused2_plain(off, c1, tb, tp, total, out_cap: int):
@@ -51,15 +54,13 @@ def expand_fused2(off: torch.Tensor, c1: torch.Tensor, tb: torch.Tensor,
     out = torch.empty(B, out_cap, dtype=torch.uint8, device=dev)
     if B == 0:
         return out
-    # a pointer starts one parent up and moves 2^r parents up in r rounds,
-    # and no chain is longer than the row
-    rounds = max(1, math.ceil(math.log2(out_cap)))
-    ptr = torch.empty(B, out_cap, dtype=torch.int32, device=dev)
-    flags = torch.zeros(rounds + 1, dtype=torch.int32, device=dev)
+    sync = torch.empty(1 + B * -(-out_cap // TILE), dtype=torch.int32,
+                       device=dev)
+    chains = torch.empty(B, out_cap, dtype=torch.int32, device=dev)
     code = build.library().expand2_launch(
         off.data_ptr(), c1.data_ptr(), tb.data_ptr(), tp.data_ptr(),
-        total.data_ptr(), out.data_ptr(), ptr.data_ptr(), flags.data_ptr(),
-        B, K, out_cap, rounds, build.stream_handle(dev),
+        total.data_ptr(), out.data_ptr(), sync.data_ptr(), sync.numel(),
+        chains.data_ptr(), B, K, out_cap, build.stream_handle(dev),
     )
     build.check(code, "expand2")
     expand_fused2.launches += 1

@@ -144,3 +144,64 @@ def far_token_lanes(seed: int, B: int = 4, K: int = 96):
         for k, (kind, a, d) in enumerate(toks):
             tk[b, k], ta[b, k], tb[b, k] = kind, a, d
     return tk, ta, tb, tp
+
+
+def expand2_edge_lanes(seed: int, tile: int):
+    """Token lanes for a tiled expansion with tiles of ``tile`` bytes:
+    (names, tk, ta, tb, tp int32 numpy, cut int32 numpy, out_cap).  A lane
+    whose ``cut`` is 0 or more takes that total in place of its tokens'
+    sum; out_cap is not a multiple of the tile.  The lanes: a match that
+    crosses a tile boundary; a tile whose every byte has its root in the
+    tile before; a source exactly 32768 back and one before the row; a
+    match of distance 0, then matches that copy its zeros; no token at all
+    (tp = 0, total 5000); a total cut inside a tile; a distance-1 run over
+    the whole row."""
+    rng = np.random.default_rng(seed)
+    out_cap = max(3 * tile, 34816) + 1000
+
+    def lits(n):
+        return [(0, int(v), 0) for v in rng.integers(0, 256, n)]
+
+    lanes = {
+        "crosses_tile": lits(tile - 100) + [(1, 258, 300)] + lits(50)
+        + [(1, 258, tile // 2)],
+        "tile_all_earlier": lits(tile) + [(1, 258, tile)] * (tile // 258 + 1),
+        "far_32768": lits(32768 + 10) + [(1, 100, 32768), (1, 20, 40000)]
+        + lits(3),
+        "distance_0": lits(500) + [(1, 50, 0)] + [(1, 258, 60)] * 10 + lits(5),
+        "tp_0": [],
+        "total_cut": lits(2 * tile) + [(1, 258, 7)] * (tile // 258),
+        "d1_run": [(0, 65, 0)] + [(1, 258, 1)] * ((out_cap - 1) // 258),
+    }
+    cuts = {"tp_0": 5000, "total_cut": 2 * tile + 77}
+    names = list(lanes)
+    K = max(len(t) for t in lanes.values())
+    tk, ta, tb = (np.zeros((len(names), K), np.int32) for _ in range(3))
+    tp = np.array([len(lanes[n]) for n in names], np.int32)
+    cut = np.array([cuts.get(n, -1) for n in names], np.int32)
+    for b, n in enumerate(names):
+        if lanes[n]:
+            tk[b, : tp[b]], ta[b, : tp[b]], tb[b, : tp[b]] = np.array(lanes[n]).T
+    return names, tk, ta, tb, tp, cut, out_cap
+
+
+def ent_edge_maps(T: int, kind: str, seed: int):
+    """Packed transfer maps int32[1, 16, T] (entries 4g..4g+3 of tile t in
+    the bytes of word [g, t]) for the edges of ``ent_from_phi``: "stops_first"
+    (every entry of tile 0 is STOP = 191), "stops_last" (only tile T - 1's),
+    "high" (a few entries of 64..190 and of 192..255 among entries in
+    [0, 64)); otherwise entries in [0, 64) alone."""
+    rng = np.random.default_rng(seed)
+    phi = rng.integers(0, 64, (64, T))  # [entry, tile]
+    if kind == "stops_first":
+        phi[:, 0] = 191
+    elif kind == "stops_last":
+        phi[:, -1] = 191
+    elif kind == "high":
+        out = rng.random((64, T)) < max(0.0005, 4 / (64 * T))
+        high = np.where(rng.random((64, T)) < 0.5, rng.integers(64, 191, (64, T)),
+                        rng.integers(192, 256, (64, T)))
+        phi = np.where(out, high, phi)
+        phi[0, -1], phi[1, -1] = 100, 200
+    packed = phi[0::4] | (phi[1::4] << 8) | (phi[2::4] << 16) | (phi[3::4] << 24)
+    return packed.astype(np.uint32).view(np.int32)[None]
