@@ -50,8 +50,15 @@ Phases, each of which raises on failure:
                back and before the row, distance 0, no token, a total
                and a row that are no tile multiple) and edge maps (T = 32,
                256, 8192; orbits that stop in the first and the last tile,
-               entries of 64..190 and 192..255; p0 = 0, 5, 63, 64), and
-               expand_fused2 timed on a distance-1 run of 1 MiB, with the
+               entries of 64..190 and 192..255; p0 = 0, 5, 63, 64);
+               visited_from_adv on every header and tokenize_dyn_hier on
+               every block of those decodes, then on edge lanes
+               (tpu_deflate_torch.lanes: the end-of-block in the last tile
+               of the walk's second run, the end bit on a chunk boundary,
+               a bad code and distances one too far and exactly as far as
+               the output in the second run, empty lanes) and edge chases
+               (p0 = 63, a terminator at p0, an orbit to the last
+               position, T = 256, jumps of 1..64); and expand_fused2 timed on a distance-1 run of 1 MiB, with the
                longest chase across tiles its data needs as a second bound.
                Before all of these, the process's first expansion:
                decompress of a stream of 12000 bytes, one row of 16384
@@ -1100,6 +1107,41 @@ def main() -> None:
     log(f"kernel ent_from_phi: equal to plain on {n_ent} edge cases (T = 32, "
         f"256, 8192; orbits that stop in the first and in the last tile, "
         f"entries of 64..190 and 192..255; p0 = 0, 5, 63, 64)")
+
+    # the device-paced decode's other two kernels on every header and block
+    # that the -6 and stored-mix -6 decodes above handed them, then on edge
+    # lanes and chases built here
+    for a in visits:
+        require(torch.equal(visited_from_adv(*a), visited_from_adv_plain(*a)),
+                "visited_from_adv differs from plain on a header's chase")
+    for a in blocks_in:
+        err = max_abs_err(tokenize_dyn_hier(*a), tokenize_dyn_hier_plain(*a))
+        require(err == 0, f"tokenize_dyn_hier differs from plain on a block by {err}")
+    log(f"kernels visited_from_adv and tokenize_dyn_hier: equal to plain on all "
+        f"{len(visits)} headers and all {len(blocks_in)} blocks of the -6 and "
+        f"stored-mix -6 decodes")
+    hier_errs = {}
+    for lname, (lstream, lend, lbase) in L.hier_edge_streams(KD.K3D_TILES).items():
+        hargs = tuple(torch.from_numpy(x).to(dev)
+                      for x in L.hier_lane(lstream, F.PW, lend, lbase)) + (F.PW,)
+        got = tokenize_dyn_hier(*hargs)
+        err = max_abs_err(got, tokenize_dyn_hier_plain(*hargs))
+        require(err == 0, f"tokenize_dyn_hier differs from plain on the edge lane "
+                f"{lname} by {err}")
+        hier_errs[lname] = int(got[6])
+    require(hier_errs["far_second_run"] == KT.ERR_DIST
+            and hier_errs["bad_code_second_run"] == KT.ERR_BAD_CODE
+            and hier_errs["eob_last_tile"] == hier_errs["reach_second_run"]
+            == hier_errs["empty_end0"] == KT.ERR_OK, f"hier edge lanes: {hier_errs}")
+    visit_cases = L.visit_edge_cases(SEED)
+    for vname, (advT, termT, p0v) in visit_cases.items():
+        vargs = (torch.from_numpy(advT).to(dev), torch.from_numpy(termT).to(dev),
+                 torch.tensor(p0v, dtype=torch.int32, device=dev))
+        require(torch.equal(visited_from_adv(*vargs), visited_from_adv_plain(*vargs)),
+                f"visited_from_adv differs from plain on the edge case {vname}")
+    log(f"kernel tokenize_dyn_hier: equal to plain on edge lanes at pw = {F.PW} "
+        f"(errors {hier_errs}); kernel visited_from_adv: equal to plain on edge "
+        f"chases {sorted(visit_cases)}")
 
     def counted(path: str, drive, must):
         """One counted run of a main path: every kernel's count is set to

@@ -31,7 +31,10 @@ decode, device ms unless said:
     of ``decompress_indexed`` at ``chunk_size=1<<20``, and on a distance-1
     run over one row of 2^20 bytes;
   * ``ent_from_phi`` and ``tokenize_dyn_hier`` (whose time includes it) on
-    a block a third of the way into that -6 stream (T = 8192);
+    a block a third of the way into that -6 stream (T = 8192), and by the
+    profiler's split the time of its own two kernels, K3d (the walk) and
+    K1d (the candidates and maps);
+  * ``visited_from_adv`` on a dynamic header of that stream (T = 128);
   * ``decode_rows_batch`` of the 8 long rows, as ``decompress_indexed``
     calls it;
   * ``decompress`` of the zlib -6 stream: host clock, mean of 3 after one
@@ -58,25 +61,37 @@ SIZE = 8 << 20
 SEED = 1951
 
 
-def device_ms(fn, reps: int = 10) -> float:
-    """Mean device milliseconds of fn(): the profiler's time of everything
-    it launches on the card, over reps calls after one warm-up."""
+def device_split(fn, reps: int = 10) -> dict:
+    """Mean device milliseconds of fn() by launch name: the profiler's
+    time of everything it launches on the card, over reps calls after one
+    warm-up; {} where a try saw no device time, after three tries (a short
+    profile sometimes comes back without kernels)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a short profile sometimes comes back without kernels
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == DeviceType.CUDA) / 1e3 / reps
-        if total > 0:
-            return total
-    return float("nan")
+        split = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                ms = e.time_range.elapsed_us() / 1e3 / reps
+                split[e.name] = split.get(e.name, 0.0) + ms
+        if sum(split.values()) > 0:
+            return split
+    return {}
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Mean device milliseconds of fn(), every launch summed; nan where
+    the profiler saw none."""
+    split = device_split(fn, reps)
+    return sum(split.values()) if split else float("nan")
 
 
 def event_ms(fn, reps: int = 10) -> float:
@@ -185,18 +200,23 @@ def decode_ms(data: bytes, dev) -> dict:
 
     ms = {}
     zs6 = zlib.compress(data, 6)
-    segs, maps, blocks = [], [], []
+    segs, maps, blocks, headers = [], [], [], []
     spied = [(X, "expand_fused2", segs), (KD, "ent_from_phi", maps),
-             (F, "tokenize_dyn_hier", blocks)]
+             (F, "tokenize_dyn_hier", blocks), (F, "visited_from_adv", headers)]
     fns = [spy(m, f, calls) for m, f, calls in spied]
     check(decompress(zs6, device=dev) == data, "zlib -6 did not decode")
     for (m, f, _), fn in zip(spied, fns):
         setattr(m, f, fn)
-    expand2, ent, hier = fns
+    expand2, ent, hier, visit = fns
     mid = len(blocks) // 3
     ms["expand_fused2 -6 segment"] = device_ms(lambda: expand2(*segs[1]))
     ms["ent_from_phi T=8192"] = device_ms(lambda: ent(*maps[mid]))
-    ms["tokenize_dyn_hier -6 block"] = device_ms(lambda: hier(*blocks[mid]))
+    split = device_split(lambda: hier(*blocks[mid]))
+    ms["tokenize_dyn_hier -6 block"] = sum(split.values()) if split else float("nan")
+    for key, part in (("K3d", "k3d_kernel"), ("K1d", "k1d_kernel")):
+        ms[f"tokenize_dyn_hier -6 block, {key}"] = sum(
+            v for k, v in split.items() if part in k) if split else float("nan")
+    ms["visited_from_adv -6 header"] = device_ms(lambda: visit(*headers[mid % len(headers)]))
 
     lcfg = DeflateConfig(chunk_size=1 << 20)
     lstream, lindex = compress_indexed(data, lcfg, device=dev)

@@ -43,10 +43,10 @@ SIGNATURES = {
     "resolve_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "expand2_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
     "ent_from_phi_launch": [_P, _P, _P, _P, _I, _I, _P],
-    "visited_from_adv_launch": [_P, _P, _P, _P, _I, _I, _P],
+    "visited_from_adv_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
     "tokenize_hier_k1d_launch": [_P, _I, _P, _P, _P, _P, _I, _P],
-    "tokenize_hier_k3d_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _P],
+    "tokenize_hier_k3d_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _P],
 }
 
 _lib = None

@@ -28,6 +28,7 @@ from tpu_deflate_torch.kernels import build
 TILE = 64
 STOP = 191  # a transfer-map entry whose orbit ended in the tile
 ENT_RUN = 64  # csrc/chase1.cu's kRun: tiles one block of ent_from_phi composes
+VISIT_RUN = 8  # csrc/chase1.cu's kVisitRun: tiles a block of visited_from_adv takes
 
 
 def _check_p0(name: str, p0: torch.Tensor, device) -> None:
@@ -118,9 +119,12 @@ def visited_from_adv_plain(advT: torch.Tensor, termT: torch.Tensor,
 def visited_from_adv(advT: torch.Tensor, termT: torch.Tensor,
                      p0: torch.Tensor) -> torch.Tensor:
     """Visited mask int32[64, T] (1 on the orbit of position p0 < 64) from
-    jump lengths advT >= 1 and terminators termT (nonzero), int32[64, T]
-    in the (row = in-tile position, column = tile) layout; T a power of
-    two, 64 T <= 16384."""
+    jump lengths advT and terminators termT (nonzero), int32[64, T] in the
+    (row = in-tile position, column = tile) layout; T a power of two, 64 T
+    <= 16384.  Every jump that is not a terminator's is 1..64, so that it
+    lands in its tile or the next, as in the JAX kernel (a header's
+    code-length symbols are at most 14 bits); the kernel traps on any
+    other."""
     for name, x in (("advT", advT), ("termT", termT)):
         if x.dtype != torch.int32 or x.dim() != 2 or x.shape[0] != TILE:
             raise ValueError(f"visited_from_adv: {name} {x.dtype} "
@@ -134,10 +138,13 @@ def visited_from_adv(advT: torch.Tensor, termT: torch.Tensor,
         return visited_from_adv_plain(advT, termT, p0)
     build.require_cuda("visited_from_adv", advT, termT, p0)
     vis = torch.empty_like(advT)
-    rounds = math.ceil(math.log2(TILE * T + 1)) + 1
+    # a ticket counter and a 17-word map a run of VISIT_RUN tiles
+    # (csrc/chase1.cu)
+    scratch = torch.empty(1 + 17 * (T // min(T, VISIT_RUN)), dtype=torch.int32,
+                          device=advT.device)
     code = build.library().visited_from_adv_launch(
-        advT.data_ptr(), termT.data_ptr(), p0.data_ptr(), vis.data_ptr(), T,
-        rounds, build.stream_handle(advT.device))
+        advT.data_ptr(), termT.data_ptr(), p0.data_ptr(), vis.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), T, build.stream_handle(advT.device))
     build.check(code, "visited_from_adv")
     visited_from_adv.launches += 1
     return vis

@@ -93,6 +93,7 @@ TAB_W = 160
 WLK_BY_TIER = {3: 22, 2: 33}
 MIN_LIT_LEN_FOREIGN = 2
 HIER_WLK = WLK_BY_TIER[2]
+K3D_TILES = 128  # csrc/tokenize_hier.cu's kK3Tiles: tiles one block of K3d walks
 
 
 def rank_symbols(tab: torch.Tensor):
@@ -395,7 +396,8 @@ def tokenize_dyn_hier(rows: torch.Tensor, end_bits: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the two
     kernels of ``csrc/tokenize_hier.cu`` with ``ent_from_phi`` between
-    them."""
+    them; the second walks K3D_TILES tiles a block and writes into one
+    zeroed allocation."""
     for name, x, dt, shape in (("rows", rows, torch.uint8, None),
                                ("end_bits", end_bits, torch.int32, (1,)),
                                ("tab", tab, torch.int32, (1, TAB_W)),
@@ -418,13 +420,18 @@ def tokenize_dyn_hier(rows: torch.Tensor, end_bits: torch.Tensor,
         tab.data_ptr(), plane.data_ptr(), phiP.data_ptr(), pw, stream)
     build.check(code, "tokenize_hier_k1d")
     ent = ent_from_phi(phiP, starts.reshape(()))
-    tk, ta, tb = (torch.zeros(1, tokcap, dtype=torch.int32, device=dev)
-                  for _ in range(3))
-    meta = torch.empty(4, dtype=torch.int32, device=dev)
+    # one zeroed allocation: the token buffers (zero past the count), meta,
+    # and K3d's scratch (control words, then a 64-bit status word a run of
+    # K3D_TILES tiles)
+    runs = T // K3D_TILES
+    buf = torch.zeros(3 * tokcap + 8 + 8 + 2 * runs, dtype=torch.int32, device=dev)
+    tk, ta, tb = (buf[i * tokcap : (i + 1) * tokcap].view(1, tokcap) for i in range(3))
+    meta = buf[3 * tokcap : 3 * tokcap + 4]
+    scratch = buf[3 * tokcap + 8 :]
     code = lib.tokenize_hier_k3d_launch(
         plane.data_ptr(), ent.data_ptr(), end_bits.data_ptr(), tab.data_ptr(),
-        tk.data_ptr(), ta.data_ptr(), tb.data_ptr(), meta.data_ptr(), T,
-        chunk, tokcap, stream)
+        tk.data_ptr(), ta.data_ptr(), tb.data_ptr(), meta.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), T, chunk, tokcap, stream)
     build.check(code, "tokenize_hier_k3d")
     tokenize_dyn_hier.launches += 1
     return (tk, ta, tb, *meta.split(1))

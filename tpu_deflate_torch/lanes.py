@@ -205,3 +205,151 @@ def ent_edge_maps(T: int, kind: str, seed: int):
         phi[0, -1], phi[1, -1] = 100, 200
     packed = phi[0::4] | (phi[1::4] << 8) | (phi[2::4] << 16) | (phi[3::4] << 24)
     return packed.astype(np.uint32).view(np.int32)[None]
+
+
+# ---------------------------------------------------------------------------
+# the tile-parallel tokenizer's and the code-length chase's edges
+# ---------------------------------------------------------------------------
+
+# literal/length codes of at least 2 bits (the tile-parallel tokenizer's
+# domain): 'a', 'b', 'c' in 2 bits, the end-of-block in 3, lengths 3 and 4
+# in 4; distances 1 and 3073..8192 in 2 bits
+EDGE_LIT = [0] * 286
+EDGE_LIT[97] = EDGE_LIT[98] = EDGE_LIT[99] = 2
+EDGE_LIT[256], EDGE_LIT[257], EDGE_LIT[258] = 3, 4, 4
+EDGE_DIST = [0] * 30
+EDGE_DIST[0] = EDGE_DIST[23] = EDGE_DIST[24] = EDGE_DIST[25] = 2
+EDGE_OUT_BASE = 37  # output bytes of the lane before the far lanes' block
+# the first symbol's bit in hand_block: the block header, 19 code-length
+# codes and 316 code lengths of 4 bits
+EDGE_FIRST_BIT = 3 + 14 + 3 * 19 + 4 * 316
+
+
+def _edge_block(lit, special, at_tile: int, after: int = 40):
+    """A block under the code lengths lit (EDGE_LIT's or another with the
+    same 2-bit literals and 4-bit lengths) whose tokens are seeded
+    literals and distance-1 matches (six in ten, 6 bits each) up to the
+    64-bit tile at_tile of the window that starts at the first symbol's
+    byte, then special(bytes of output so far) (a list of tokens) starting
+    in that tile, then ``after`` literals.  Returns (stream, bytes of
+    output before special)."""
+    rng = np.random.default_rng(at_tile)
+    bit = EDGE_FIRST_BIT & 7  # the window starts at the first symbol's byte
+    lo = 64 * at_tile
+    toks, out = [], 0
+    lengths = [n for n in (3, 4) if lit[257 + n - 3]]  # symbols 257, 258
+    while bit + 6 <= lo:
+        if out and rng.random() < 0.6:
+            n = int(rng.choice(lengths))
+            toks.append(("match", n, 1))
+            bit, out = bit + 6, out + n
+        else:
+            toks.append(("lit", int(rng.integers(97, 100))))
+            bit, out = bit + 2, out + 1
+    while bit < lo:
+        toks.append(("lit", 97))
+        bit, out = bit + 2, out + 1
+    assert lo <= bit < lo + 64
+    toks += special(out)
+    toks += [("lit", int(v)) for v in rng.integers(97, 100, after)]
+    return hand_block(lit, EDGE_DIST, toks), out
+
+
+def hier_edge_streams(run_tiles: int) -> dict:
+    """Blocks for the edges of the tile-parallel tokenizer's walk, whose
+    blocks walk runs of ``run_tiles`` tiles: {name: (stream, end bit
+    relative to the window or None for the stream's own, TAB_OUTBASE)}.
+
+    eob_last_tile: the end-of-block in the last tile of the second run.
+    end_on_chunk: a block longer than 32768 bits cut at bit 32768 of the
+      window, a boundary of the walk's 32768-bit chunks.
+    bad_code_second_run: an unused code (1111 of an incomplete code) in
+      the second run.
+    far_second_run, reach_second_run: a match whose distance is one more
+      than, and exactly, the output before it (EDGE_OUT_BASE bytes of
+      earlier blocks included), in the second run, past its first tile.
+    empty_end0, empty_end3: end bits 0 and 3."""
+    second = run_tiles + 37
+    eob, _ = _edge_block(EDGE_LIT, lambda out: [], 2 * run_tiles - 1,
+                         after=0)
+    long_, _ = _edge_block(EDGE_LIT, lambda out: [], 520, after=200)
+    incomplete = list(EDGE_LIT)
+    incomplete[258] = 0  # 3 x 2 bits, 3 bits, 4 bits: 15/16, 1111 unused
+    bad, _ = _edge_block(incomplete, lambda out: [("bits", 15, 4)],
+                         second)
+
+    def far(extra):
+        return lambda out: [("match", 3, EDGE_OUT_BASE + out + extra)]
+
+    far1, out1 = _edge_block(EDGE_LIT, far(1), second)
+    far0, out0 = _edge_block(EDGE_LIT, far(0), second)
+    assert 3073 <= EDGE_OUT_BASE + out0 and EDGE_OUT_BASE + out1 + 1 <= 8192
+    return {
+        "eob_last_tile": (eob, None, 0),
+        "end_on_chunk": (long_, 32768, 0),
+        "bad_code_second_run": (bad, None, 0),
+        "far_second_run": (far1, None, EDGE_OUT_BASE),
+        "reach_second_run": (far0, None, EDGE_OUT_BASE),
+        "empty_end0": (eob, 0, 0),
+        "empty_end3": (eob, 3, 0),
+    }
+
+
+def hier_lane(stream: bytes, pw: int, end=None, out_base: int = 0):
+    """One block's lane as the device-paced decode hands it to
+    ``tokenize_dyn_hier``: (rows uint8[1, pw / 8], end_bits, tab, starts
+    int32 numpy), the window re-based at the first symbol's byte, the
+    tables from the port's header parse with TAB_OUTBASE = out_base, the
+    end bit ``end`` (relative to the window) or the stream's own."""
+    import torch
+
+    from tpu_deflate_torch.kernels.tokenize_dyn import TAB_OUTBASE
+    from tpu_deflate_torch.ops.decode import dyn_header_params_batch
+
+    s = np.frombuffer(stream, np.uint8)
+    rows = np.zeros((1, len(s) + pw // 8), np.uint8)
+    rows[0, : len(s)] = s
+    prep = dyn_header_params_batch(torch.from_numpy(rows),
+                                   torch.tensor([8 * len(s)], dtype=torch.int32))
+    start = int(prep["start"][0])
+    assert bool(prep["ok"][0]) and int(prep["min_len"][0]) >= 2
+    tab = prep["tab"].numpy().astype(np.int32)
+    tab[0, TAB_OUTBASE] = out_base
+    base2 = start >> 3
+    end_rel = 8 * len(s) - 8 * base2 if end is None else end
+    return (rows[:, base2 : base2 + pw // 8].copy(), np.array([end_rel], np.int32),
+            tab, np.array([start & 7], np.int32))
+
+
+def visit_edge_cases(seed: int) -> dict:
+    """(advT, termT int32[64, T], p0) for the edges of the code-length
+    chase, in its (in-tile position, tile) layout: {name: case}.
+
+    p0_63: the orbit starts at the first tile's last position.
+    term_at_p0: a terminator at p0, the orbit is p0 alone.
+    to_last: no terminator, jumps of 1 over the last 20 positions, so
+      the orbit reaches position 64 T - 1.
+    T256: 64 x 256 positions, the widest the chase takes.
+    jumps_to_64: jumps of 1..64, so chains leave a tile from any phase
+      and land anywhere in the next."""
+    rng = np.random.default_rng(seed)
+
+    def case(T, hi=15, p_term=0.002):
+        adv = rng.integers(1, hi, 64 * T)
+        term = rng.random(64 * T) < p_term
+        return adv, term
+
+    out = {}
+    adv, term = case(128)
+    out["p0_63"] = (adv, term, 63)
+    adv, term = case(128)
+    term[5] = True
+    out["term_at_p0"] = (adv, term, 5)
+    adv, term = case(128, p_term=0.0)
+    adv[-20:] = 1
+    out["to_last"] = (adv, term, 0)
+    out["T256"] = (*case(256), 3)
+    out["jumps_to_64"] = (*case(128, hi=65, p_term=0.0005), 0)
+    return {name: (a.reshape(-1, 64).T.astype(np.int32).copy(),
+                   t.reshape(-1, 64).T.astype(np.int32).copy(), p0)
+            for name, (a, t, p0) in out.items()}
