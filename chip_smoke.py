@@ -58,8 +58,20 @@ Phases, each of which raises on failure:
                a bad code and distances one too far and exactly as far as
                the output in the second run, empty lanes) and edge chases
                (p0 = 63, a terminator at p0, an orbit to the last
-               position, T = 256, jumps of 1..64); and expand_fused2 timed on a distance-1 run of 1 MiB, with the
-               longest chase across tiles its data needs as a second bound.
+               position, T = 256, jumps of 1..64); tokenize_dyn_hier's
+               K1d (hier_maps: the candidates' plane and the transfer
+               maps) on every block of those decodes and on edge lanes
+               (lanes.hier_edge_streams, lanes.k1d_edge_lanes: a 1-bit
+               code, end-of-blocks at phases 0 and 63, 48-bit symbols,
+               end bits inside a tile and on a block boundary);
+               resolve_roots on every segment of the stored-mix decode, on
+               edge forests (lanes.resolve_edge_forests: parents after
+               their positions, a chain zigzagging across 16 tiles, three
+               rows of no tile multiple, rows of one position), and on the
+               distance-1 run of a segment, timed, and its launches (two a
+               call, no memset, no host read); and expand_fused2 timed on a
+               distance-1 run of 1 MiB, with the longest chase across tiles
+               its data needs as a second bound (also for resolve_roots).
                Before all of these, the process's first expansion:
                decompress of a stream of 12000 bytes, one row of 16384
   4. main    — 8 MiB of tests/data/corpus.bin.gz through compress_indexed
@@ -258,6 +270,44 @@ def expand2_chain(args, tile: int) -> int:
     return longest
 
 
+def resolve_chase(args, tile: int) -> int:
+    """The longest chase across tiles that resolve_roots' data needs: each
+    position's parent jumped inside its tile of ``tile`` positions to its
+    root there or to the first position outside the tile on its chain (its
+    exit); a position of the second kind takes one read through L2 more
+    than its exit.  Counted by doubling (list ranking)."""
+    import torch
+
+    parent = args[0].long()
+    N = parent.shape[-1]
+    at = torch.arange(N, device=parent.device)
+    t0 = at // tile * tile
+    ref = parent.clamp(0, N - 1)
+    while True:
+        inside = (ref >= t0) & (ref < t0 + tile)
+        nxt = torch.where(inside, torch.gather(ref, -1, ref), ref)
+        if torch.equal(nxt, ref):
+            break
+        ref = nxt
+    leaves = ~((ref >= t0) & (ref < t0 + tile))
+    nxt = torch.where(leaves, ref, at)
+    hops = leaves.long()
+    while True:
+        n2 = torch.gather(nxt, -1, nxt)
+        if torch.equal(n2, nxt):
+            return int(hops.max())
+        hops = hops + torch.gather(hops, -1, nxt)
+        nxt = n2
+
+
+def jump_depth(hops: int) -> int:
+    """The dependent reads through L2 of a chase of ``hops`` steps where the
+    chases jump pointers (resolve_roots: each writes the position it
+    reached over its own entry): ceil(log2 hops) to reach the root, and one
+    more to see that it is one."""
+    return 0 if hops == 0 else (hops - 1).bit_length() + 1
+
+
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
@@ -312,6 +362,26 @@ def device_split(fn, reps: int) -> dict:
             ms = e.time_range.elapsed_us() / 1e3 / reps
             split[e.name] = split.get(e.name, 0.0) + ms
     return split
+
+
+def device_launches(fn, reps: int) -> dict:
+    """Device operations a call of fn() by name (kernels, copies,
+    memsets), over reps calls after one warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            counts[e.name] = counts.get(e.name, 0) + 1 / reps
+    return counts
 
 
 def device_ms(fn, reps: int = 10):
@@ -459,6 +529,7 @@ def main() -> None:
         match_bitplane_batch,
         match_bitplane_plain,
     )
+    from tpu_deflate_torch.kernels.resolve import TILE as RES_TILE
     from tpu_deflate_torch.kernels.resolve import resolve_roots, resolve_roots_plain
     from tpu_deflate_torch.kernels.monotone import (
         mono_compact,
@@ -471,6 +542,8 @@ def main() -> None:
         tokenize_static_plain,
     )
     from tpu_deflate_torch.kernels.tokenize_dyn import (
+        hier_maps,
+        hier_maps_plain,
         tokenize_dyn_batch,
         tokenize_dyn_hier,
         tokenize_dyn_hier_plain,
@@ -639,15 +712,19 @@ def main() -> None:
     ]
     # each kernel's chain of dependent steps and the cycles of a step:
     # log2 of a chase's tiles or positions; for the tile-parallel tokenizer
-    # a map chain in a tile (32), the composition over the tiles and a
-    # tile's walk (33); for expand_fused2 the longest chase its data needs
+    # the doubling of a tile's maps (5 rounds), the composition over the
+    # tiles and a tile's walk (33); for expand_fused2 and resolve_roots the
+    # longest chase across tiles their data needs (for resolve_roots, whose
+    # chases jump pointers, its depth by doubling)
     serial_steps = {
         "ent_from_phi": (lambda a, o: a[0].shape[2].bit_length() - 1, STEP_CYCLES),
         "visited_from_adv": (lambda a, o: (a[0].numel() + 1).bit_length(),
                              STEP_CYCLES),
-        "tokenize_dyn_hier": (lambda a, o: 32 + (a[4] // 64).bit_length() - 1 + 33,
+        "tokenize_dyn_hier": (lambda a, o: 5 + (a[4] // 64).bit_length() - 1 + 33,
                               STEP_CYCLES),
         "expand_fused2": (lambda a, o: expand2_chain(a, E2_TILE), L2_CYCLES),
+        "resolve_roots": (lambda a, o: jump_depth(resolve_chase(a, RES_TILE)),
+                          L2_CYCLES),
     }
     results = []
     for kname, src, replaces, kern, plain, args, work, library in cases:
@@ -682,6 +759,24 @@ def main() -> None:
                 f"without ent_kernel {sum(split.values()) - ent_part:.4f} ms; "
                 "by launch: " + ", ".join(f"{k[:48]} {v:.4f}"
                                           for k, v in sorted(split.items())))
+            # K1d's floor: the window read once, its plane and maps
+            # written once
+            k1d_ms = sum(v for k, v in split.items() if "k1d_kernel" in k)
+            k1d_floor = bound(args[4] // 8 + 5 * args[4] + nbytes(args[2]), 0)[0]
+            log(f"kernel tokenize_dyn_hier, K1d: device {k1d_ms:.4f} ms, floor "
+                f"{k1d_floor:.5f} ms by bytes; serial 5 doubling rounds "
+                f"{5 * STEP_CYCLES / SM_HZ * 1e3:.5f} ms on {name}, {smi}")
+        if kname == "resolve_roots":
+            per_call = device_launches(lambda: kern(*args), 5)
+            require(sum(per_call.values()) <= 2 and all(
+                "resolve" in k for k in per_call), f"resolve_roots launches {per_call}")
+            torch.cuda.set_sync_debug_mode("error")  # a host read raises
+            try:
+                kern(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            log(f"kernel resolve_roots: launches a call {per_call}, no memset "
+                "and no host read")
         lanes = got[0].shape[0]
         log(f"kernel {kname}: equal to plain on {lanes} lanes; device "
             f"{fmt_ms(dev_ms)}, host-paced {ms:.4f} ms (plain {plain_ms:.3f} "
@@ -1065,6 +1160,35 @@ def main() -> None:
         f"{chase1} steps; bound {run1_bound:.5f} ms by bytes, serial "
         f"{chase1 * L2_CYCLES / SM_HZ * 1e3:.5f} ms on {name}, {smi}")
 
+    # resolve_roots on every segment that the stored-mix decode above
+    # handed it, on the distance-1 run of a segment alone (its chase
+    # crosses every tile), timed, and on edge forests
+    # (tpu_deflate_torch.lanes): parents after their positions, a chain
+    # that zigzags across 16 tiles, three rows of no tile multiple, rows of
+    # one position
+    for a in chains:
+        require(torch.equal(resolve_roots(*a).long(),
+                            resolve_roots_plain(a[0].long(), a[1].long())),
+                "resolve_roots differs from plain on a stored-mix segment")
+    d1 = (parent[:1].contiguous(), val[:1].contiguous())
+    d1_chase = resolve_chase(d1, RES_TILE)
+    d1_dev = device_ms(lambda: resolve_roots(*d1))
+    d1_ms = cuda_ms(lambda: resolve_roots(*d1), reps=10)
+    d1_bound = bound(*work_resolve(d1, (resolve_roots(*d1),)))[0]
+    log(f"kernel resolve_roots on the distance-1 run of a segment ({N} "
+        f"positions, B = 1): device {fmt_ms(d1_dev)}, host-paced "
+        f"{d1_ms:.4f} ms; a chase of {d1_chase} steps, {jump_depth(d1_chase)} "
+        f"by doubling; bound {d1_bound:.5f} ms by bytes, serial "
+        f"{jump_depth(d1_chase) * L2_CYCLES / SM_HZ * 1e3:.5f} ms on {name}, {smi}")
+    forests = L.resolve_edge_forests(RES_TILE, SEED)
+    for fname, (fp, fv) in forests.items():
+        fa = (torch.from_numpy(fp).to(dev), torch.from_numpy(fv).to(dev))
+        require(torch.equal(resolve_roots(*fa).long(),
+                            resolve_roots_plain(fa[0].long(), fa[1].long())),
+                f"resolve_roots differs from plain on the edge forest {fname}")
+    log(f"kernel resolve_roots: equal to plain on all {len(chains)} stored-mix "
+        f"segments and on edge forests {sorted(forests)} (tiles of {RES_TILE})")
+
     # expand_fused2 on every segment and ent_from_phi on every block's maps
     # that the -6 and stored-mix decodes above handed them, then on edge
     # lanes and maps built here
@@ -1120,6 +1244,32 @@ def main() -> None:
     log(f"kernels visited_from_adv and tokenize_dyn_hier: equal to plain on all "
         f"{len(visits)} headers and all {len(blocks_in)} blocks of the -6 and "
         f"stored-mix -6 decodes")
+
+    def k1d_equal(rows, ends, tab, pw) -> bool:
+        """K1d's plane and maps against the plain version's."""
+        plane, phiP = hier_maps(rows, ends, tab, pw)
+        want_plane, want_phiP = hier_maps_plain(rows, ends, tab, pw)
+        return (torch.equal(plane.long(), want_plane)
+                and torch.equal(phiP, want_phiP))
+
+    for a in blocks_in:
+        require(k1d_equal(a[0], a[1], a[2], a[4]),
+                "tokenize_dyn_hier's K1d differs from plain on a block")
+    k1d_lanes = {f"hier {k}": L.hier_lane(st, F.PW, e, ob)
+                 for k, (st, e, ob) in L.hier_edge_streams(KD.K3D_TILES).items()}
+    k1d_lanes.update(L.k1d_edge_lanes(F.PW))
+    for lname, lane in k1d_lanes.items():
+        rows_l, ends_l, tab_l, starts_l = (torch.from_numpy(x).to(dev) for x in lane)
+        require(k1d_equal(rows_l, ends_l, tab_l, F.PW),
+                f"tokenize_dyn_hier's K1d differs from plain on the lane {lname}")
+        if not lname.startswith("hier "):
+            hargs = (rows_l, ends_l, tab_l, starts_l, F.PW)
+            err = max_abs_err(tokenize_dyn_hier(*hargs), tokenize_dyn_hier_plain(*hargs))
+            require(err == 0, f"tokenize_dyn_hier differs from plain on the K1d "
+                    f"edge lane {lname} by {err}")
+    log(f"tokenize_dyn_hier's K1d: plane and maps equal to plain on all "
+        f"{len(blocks_in)} blocks and on edge lanes {sorted(k1d_lanes)} at pw = "
+        f"{F.PW}")
     hier_errs = {}
     for lname, (lstream, lend, lbase) in L.hier_edge_streams(KD.K3D_TILES).items():
         hargs = tuple(torch.from_numpy(x).to(dev)

@@ -1,5 +1,21 @@
-"""A numpy model of the schedule of ``tokenize_dyn_hier``'s walk, K3d
-(``tpu_deflate_torch/csrc/tokenize_hier.cu``): a block takes a ticket and
+"""Numpy models of the schedules of ``tokenize_dyn_hier``'s two kernels
+(``tpu_deflate_torch/csrc/tokenize_hier.cu``).
+
+K1d, the candidates and maps: a block of K1D_BITS bit positions whose
+first bit lies at or past the end bit writes K_BAD fields and STOP maps
+and nothing else; any other block takes each bit's candidate and
+one-step map (255 at a terminator, else phase + adv), and a warp a tile
+composes the maps by five rounds of doubling (lane l holds phases l and l
++ 32, and reads another lane's two by shuffles), exits and terminators
+absorbing; the maps are staged as words of four phases and stored as the
+block's tiles of each phase group.  The model must equal ``hier_maps_plain``, and
+its plane and maps feed the K3d model below, so that the pair is held to
+the JAX package on every lane here, among them
+``tpu_deflate_torch.lanes.k1d_edge_lanes`` (a 1-bit code whose chains
+stay in their tile, end-of-blocks at phases 0 and 63, 48-bit symbols, end
+bits inside a tile and on a block boundary).
+
+K3d, the walk: a block takes a ticket and
 with it a run of RUN consecutive tiles; a run whose first tile's chunk
 starts at or past the end bit walks nothing and publishes an empty count;
 a live run stages its fields, walks every tile from its entry phase once
@@ -48,9 +64,12 @@ from tpu_deflate_torch.kernels.tokenize import (  # noqa: E402
 )
 from tpu_deflate_torch.kernels.tokenize_dyn import (  # noqa: E402
     HIER_WLK,
+    K1D_BITS,
     K3D_TILES,
     TAB_OUTBASE,
     _hier_maps_plain,
+    hier_maps,
+    hier_maps_plain,
     hier_shape,
     tokenize_dyn_hier_plain,
 )
@@ -60,11 +79,48 @@ NTOK_BITS = 20  # csrc/tokenize_hier.cu's kNtokBits
 LOOK = 32  # the look-back reads a warp's worth of words at once
 
 
+K1_TILES = K1D_BITS // 64  # tiles a K1d block decodes and maps
+STOP = 191
+BAD_FIELDS = (K_BAD << 30) | (1 << 24)
+
+
 def _plane(fields) -> np.ndarray:
     """The fields as K1d packs them: kind | adv | ta | dist - 1."""
     kind, adv, ta, tb = (x.numpy().astype(np.int64) for x in fields)
     return ((kind << 30) | (adv << 24) | (ta << 15)
             | np.where(kind == K_MATCH, tb - 1, 0))
+
+
+def model_k1d(rows, ends, tab, pw: int):
+    """K1d's blocks on one lane: (plane int64[pw], the fields unsigned,
+    phiP int32[1, 16, T]).  The candidate decode is the plain one."""
+    T, end = pw // 64, int(ends[0])
+    fields, _ = _hier_maps_plain(rows, ends, tab, pw)
+    kind, adv = (x.numpy().astype(np.int64) for x in fields[:2])
+    packed = _plane(fields)
+    plane = np.full(pw, BAD_FIELDS, np.int64)
+    words = np.full((16, T), STOP * 0x01010101, np.int64)
+    for blk in range(pw // (64 * K1_TILES)):
+        lo, hi = 64 * K1_TILES * blk, 64 * K1_TILES * (blk + 1)
+        if lo >= end:  # a dead block: the constants above
+            continue
+        plane[lo:hi] = packed[lo:hi]
+        term = (kind[lo:hi] == K_EOB) | (kind[lo:hi] == K_BAD)
+        m0 = np.where(term, 255, np.arange(hi - lo) % 64 + adv[lo:hi])
+        a, b = m0.reshape(K1_TILES, 64)[:, :32], m0.reshape(K1_TILES, 64)[:, 32:]
+        for _ in range(5):  # lanes read this round's a and b of lane x & 31
+            def pick(x):
+                return np.where(x < 32, np.take_along_axis(a, x & 31, 1),
+                                np.take_along_axis(b, x & 31, 1))
+            a, b = np.where(a >= 64, a, pick(a)), np.where(b >= 64, b, pick(b))
+        m = np.concatenate([a, b], 1)  # [tile, phase]
+        phi = np.where(m >= 128, STOP, (m - 64) & 0xFF)
+        stage = np.zeros((16, K1_TILES), np.int64)  # [phase group, tile]
+        for e in range(64):
+            stage[e >> 2] |= phi[:, e] << (8 * (e & 3))
+        words[:, K1_TILES * blk : K1_TILES * (blk + 1)] = stage
+    phiP = words.astype(np.uint32).view(np.int32)[None]
+    return plane, phiP
 
 
 def _walk(words, t: int, start: int, end: int):
@@ -198,15 +254,20 @@ def model_k3d(plane, ent, end: int, out_base: int, pw: int, seed: int, stats):
 
 
 def _check(rows, ends, tab, starts, pw, seed):
-    """The model on the block against the plain version; returns its
-    outputs and stats."""
+    """The K1d model on the block against the plain version, then the
+    K3d model on its plane and maps against the plain version; returns
+    the outputs and stats."""
     t = [torch.from_numpy(np.ascontiguousarray(x)) for x in (rows, ends, tab, starts)]
     want = [x.numpy() for x in tokenize_dyn_hier_plain(*t, pw)]
-    fields, phiP = _hier_maps_plain(t[0], t[1], t[2], pw)
-    ent = ent_from_phi_plain(phiP, t[3].reshape(()))[0, 0].numpy()
+    plane, phiP = model_k1d(t[0], t[1], t[2], pw)
+    want_plane, want_phiP = hier_maps(t[0], t[1], t[2], pw)
+    np.testing.assert_array_equal(plane.astype(np.uint32).view(np.int32),
+                                  want_plane.numpy())
+    np.testing.assert_array_equal(phiP, want_phiP.numpy())
+    ent = ent_from_phi_plain(torch.from_numpy(phiP), t[3].reshape(()))[0, 0].numpy()
     stats = {"dead": 0, "waits": 0, "depth": 0}
     for s in range(3):  # three interleavings
-        got = model_k3d(_plane(fields), ent, int(ends[0]), int(tab[0, TAB_OUTBASE]),
+        got = model_k3d(plane, ent, int(ends[0]), int(tab[0, TAB_OUTBASE]),
                         pw, seed + s, stats)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
@@ -272,3 +333,33 @@ def test_model_equals_plain_edges(name, pw):
         assert out_base > 0 and ntok > 0
     if pw == 1 << 15 or name == "end_on_chunk":
         _equal_jax(got, *lane, pw)
+
+
+K1D_LANES = L.k1d_edge_lanes(1 << 15)
+
+
+@pytest.mark.parametrize("name", list(K1D_LANES))
+def test_k1d_model_equals_plain_and_jax_edges(name):
+    """The K1d model against hier_maps_plain on its edge lanes, and with
+    the K3d model against the JAX package."""
+    pw = 1 << 15
+    lane = K1D_LANES[name]
+    got, _ = _check(*lane, pw, len(name))
+    _equal_jax(got, *lane, pw)
+    t = [torch.from_numpy(x) for x in lane[:3]]
+    plane, phiP = hier_maps_plain(*t, pw)
+    kind, adv = (plane >> 30) & 3, (plane >> 24) & 63
+    phase = torch.arange(pw) % 64
+    maps = [(phiP >> (8 * j)) & 0xFF for j in range(4)]
+    end, end_pos = int(lane[1][0]), int(got[5][0])
+    if name == "one_bit_code":  # chains that stay in their tile 32 links
+        assert any(bool((m >= 192).any()) for m in maps)
+    if name.startswith("eob_phase"):
+        at = end_pos - 3  # the end-of-block's 3 bits
+        assert int(kind[at]) == K_EOB and at % 64 == int(name[9:])
+    if name == "wide":
+        assert bool(((adv == 48) & (kind == K_MATCH) & (phase + 48 > 64)).any())
+    if name == "end_mid_tile":
+        assert end % 64 == 37 and end_pos == end
+    if name == "end_on_block":
+        assert end % (64 * K1_TILES) == 0 and int(kind[end]) == K_BAD

@@ -1,9 +1,12 @@
 """decompress_indexed on damaged input: the port raises exactly the JAX
 package's exception and text.  Input A is a legal round trip whose lane
 overflows its token capacity; input B is a three-chunk stream read with a
-shifted index and with a negative index entry."""
+shifted index and with a negative index entry.  An index of no chunk
+raises the JAX package's type."""
 
 from __future__ import annotations
+
+import zlib
 
 import numpy as np
 import pytest
@@ -66,3 +69,22 @@ def test_true_index_round_trips_alike():
     assert list(index) == [858, 858, 796]
     assert td.decompress_indexed(stream, index, tcfg, device="cpu") == TEXT
     assert tj.decompress_indexed(stream, index, jcfg) == TEXT
+
+
+@pytest.mark.parametrize("trailer", [1, 5])
+def test_empty_index_raises_alike(trailer):
+    """An empty index on a stream with an empty body: the JAX package's
+    batch pad raises OverflowError before it decodes anything, and so does
+    the port; zlib rejects the stream with trailer 1 as truncated."""
+    stream = b"\x78\x9c" + trailer.to_bytes(4, "big")
+    index = np.array([], np.int64)
+    cfg = dict(chunk_size=4096)
+    want = _raised(lambda: tj.decompress_indexed(stream, index,
+                                                 tj.DeflateConfig(**cfg)))
+    got = _raised(lambda: td.decompress_indexed(stream, index,
+                                                td.DeflateConfig(**cfg),
+                                                device="cpu"))
+    assert got[0] is want[0] is OverflowError
+    if trailer == 1:
+        with pytest.raises(zlib.error):
+            zlib.decompress(stream)

@@ -102,13 +102,16 @@ def decompress_indexed(stream: bytes, index, config: DeflateConfig = DeflateConf
     and static lanes decode first; dynamic-tree lanes then decode with
     per-lane code tables, at once where ``config.dynamic_encode`` says the
     stream has them.  Raises ValueError on a corrupt stream or an index
-    that does not cover it, DeflateError on dynamic trees that the config
+    that does not cover it, OverflowError on an index of no chunk (the
+    JAX package's type), DeflateError on dynamic trees that the config
     rejects."""
     body = stream[2:-4]
     index = np.asarray(index, dtype=np.int64)
     offsets = np.concatenate([[0], np.cumsum(index)])
     if offsets[-1] != len(body):
         raise ValueError("index does not cover the stream body")
+    if len(index) == 0:  # the JAX package's batch pad overflows here
+        raise OverflowError("decompress_indexed: the index has no chunk")
     width = max(int(index.max(initial=0)), 1)
     padded = np.zeros(len(body) + width, np.uint8)
     padded[: len(body)] = np.frombuffer(body, dtype=np.uint8)

@@ -12,21 +12,34 @@
 // pw = 2^19) and writes a 4-byte field and a map byte per bit position,
 // 2.5 MiB; k3d reads the fields of the true symbols only (the next
 // symbol's phase follows from them) and writes the tokens.  What is
-// serial is short: a chain of at most 32 links inside a tile (every
+// serial is short: five rounds of map doubling inside a tile (every
 // literal/length code of the block is at least 2 bits, so a symbol that
-// does not end the block is at least 2 bits wide), 33 visits a tile, and
-// one scan across the tiles.
+// does not end the block is at least 2 bits wide and 32 links cross a
+// tile), 33 visits a tile, and one scan across the tiles.
 //
-// k1d, one thread per bit position, 16 tiles a block: the block's window
-// bytes and the lane's tables go to shared memory; each thread decodes the
-// symbol starting at its position (dyn_sym.cuh; a position at or past the
-// end bit is K_BAD of width 1), stores its fields kind | adv | ta |
-// dist - 1, and puts its one-step map in shared memory: 255 at a
-// terminator (end-of-block or bad code), else its phase + adv.  Then
-// thread (tile, e) follows the tile's one-step maps from phase e for up to
-// 32 links: the entry phase in the next tile, or STOP.  Bytes at or past
-// pw / 8 read as zero, as in the TPU form, whose last tile sees no next
-// tile.
+// k1d, a block of 512 threads for 2048 bit positions (32 tiles), a
+// position a thread in each of 4 chunks:
+//   1. Dead blocks.  A block whose first bit lies at or past the end bit
+//      writes the constant fields of K_BAD and STOP maps, as the plain
+//      version gives them there, and stops: no table load, no decode.
+//   2. Candidates.  The block's window bytes and the lane's tables go to
+//      shared memory, the code limits to registers; each thread decodes
+//      the symbols starting at its positions (dyn_sym.cuh; a position at
+//      or past the end bit is K_BAD of width 1), stores their fields kind
+//      | adv | ta | dist - 1, and puts their one-step maps in shared
+//      memory: 255 at a terminator (end-of-block or bad code), else the
+//      phase + adv.  Bytes at or past pw / 8 read as zero, as in the TPU
+//      form, whose last tile sees no next tile.
+//   3. Maps by doubling.  A warp holds a tile's 64 one-step maps in
+//      registers, lane l phases l and l + 32; five rounds of m <- m o m,
+//      two shuffles a phase each, with exits (>= 64) and
+//      terminators (255) absorbing, give exactly what 32 links of the
+//      one-step map give: the entry phase in the next tile, or STOP; a
+//      chain still inside the tile keeps (x - 64) & 0xFF, as plain.
+//   4. Maps in whole words.  phi (int32[16, T], phases 4g..4g+3 of tile t
+//      in the bytes of word [g, t]) is staged in shared memory, then
+//      stored a word a thread: a block's 32 tiles of one phase group are
+//      128 contiguous bytes.
 //
 // k3d, the walk spread over the card: a block of kK3Tiles threads walks
 // kK3Tiles consecutive tiles, one a thread, in one launch.
@@ -72,8 +85,8 @@ using namespace dyn;
 
 constexpr int TILE = 64;
 constexpr int STOP = 191;
-constexpr int THREADS = 1024;
-constexpr int K1_TILES = THREADS / TILE;  // tiles per k1d block
+constexpr unsigned STOP4 = 0x01010101u * STOP;  // four STOP maps in a word
+constexpr unsigned BAD_FIELDS = ((unsigned)K_BAD << 30) | (1u << 24);
 constexpr int WLK = 33;                   // visits per tile
 constexpr int kK3Tiles = 128;             // tiles a k3d block walks, one a thread
 constexpr int kK3MaxT = 8192;             // tiles of the widest window, 2^19 bits
@@ -89,46 +102,100 @@ constexpr unsigned long long kPrefix = 2ull << 62;    // flag 2
 constexpr int kMaxPolls = 1 << 22;
 static_assert(kK3MaxT * WLK < (1 << kNtokBits), "token counts fit their field");
 
-__global__ void __launch_bounds__(THREADS)
+// k1d: a block of kK1Threads threads decodes kK1Chunks chunks of
+// kK1Threads bit positions, a position a thread a chunk
+constexpr int kK1Threads = 512;
+constexpr int kK1Chunks = 4;
+constexpr int kK1Bits = kK1Chunks * kK1Threads;
+constexpr int kK1Tiles = kK1Bits / TILE;  // tiles a k1d block maps
+
+// 64 bits of the window from its bit l on
+__device__ __forceinline__ uint64_t window64(const unsigned* win, int l) {
+  const unsigned* x = win + (l >> 5);
+  return (uint64_t)__funnelshift_r(x[1], x[2], l) << 32 |
+         __funnelshift_r(x[0], x[1], l);
+}
+
+__global__ void __launch_bounds__(kK1Threads)
     k1d_kernel(const uint8_t* __restrict__ row, int nbytes,
                const int* __restrict__ end_bits, const int* __restrict__ tab,
-               int* __restrict__ plane, uint8_t* __restrict__ phi, int T) {
-  __shared__ Tables tabs;
-  __shared__ uint8_t win[K1_TILES * 8 + 8];
-  __shared__ uint8_t m0s[THREADS];
-  load_tables(tabs, tab);
-  const int byte0 = blockIdx.x * K1_TILES * 8;
-  for (int k = threadIdx.x; k < K1_TILES * 8 + 8; k += blockDim.x) {
-    win[k] = byte0 + k < nbytes ? __ldg(row + byte0 + k) : 0;
-  }
-  __syncthreads();
+               int* __restrict__ plane, unsigned* __restrict__ phi, int T) {
+  __shared__ __align__(16) Tables tabs;
+  __shared__ unsigned win[kK1Bits / 32 + 4];  // the block's bytes and 16 more
+  __shared__ uint8_t m0s[kK1Bits];
+  __shared__ unsigned words[16 * kK1Tiles];  // [phase group][tile]
+  const int tid = threadIdx.x;
+  const int bit0 = blockIdx.x * kK1Bits;
+  const int end = *end_bits;
+  unsigned* phib = phi + blockIdx.x * kK1Tiles;  // the block's first tile
 
-  const int p = blockIdx.x * THREADS + threadIdx.x;
-  const int q = p % TILE;
-  Sym s{K_BAD, 1, 0, 0};
-  if (p < *end_bits) {
-    uint64_t w = 0;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      w |= (uint64_t)win[(threadIdx.x >> 3) + k] << (8 * k);
+  // 1. a dead block (uniform across it)
+  if (bit0 >= end) {
+    for (int l = tid; l < kK1Bits; l += kK1Threads) plane[bit0 + l] = (int)BAD_FIELDS;
+    for (int i = tid; i < 16 * kK1Tiles; i += kK1Threads) {
+      phib[(size_t)(i / kK1Tiles) * T + i % kK1Tiles] = STOP4;
     }
-    s = dyn_symbol(w >> (p & 7), tabs.lim[0], tabs.rd[0], tabs.lit_sym,
-                   tabs.lim[1], tabs.rd[1], tabs.dist_sym);
+    return;
   }
-  plane[p] = (int)(((unsigned)s.kind << 30) | ((unsigned)s.adv << 24) |
-                   ((unsigned)s.ta << 15) |
-                   (s.kind == K_MATCH ? (unsigned)(s.dist - 1) : 0u));
-  m0s[threadIdx.x] =
-      (uint8_t)(s.kind == K_EOB || s.kind == K_BAD ? 255 : q + s.adv);
+
+  // 2. candidates, the code limits in registers
+  load_tables(tabs, tab);
+  const int byte0 = bit0 / 8;
+  for (int k = tid; k < kK1Bits / 8 + 16; k += kK1Threads) {
+    ((uint8_t*)win)[k] = byte0 + k < nbytes ? __ldg(row + byte0 + k) : 0;
+  }
+  __syncthreads();
+  int lim[2][16];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int4 v = ((const int4*)tabs.lim[c])[q];
+      lim[c][4 * q] = v.x, lim[c][4 * q + 1] = v.y;
+      lim[c][4 * q + 2] = v.z, lim[c][4 * q + 3] = v.w;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kK1Chunks; ++c) {
+    const int l = c * kK1Threads + tid;
+    Sym s{K_BAD, 1, 0, 0};
+    if (bit0 + l < end) {
+      s = dyn_symbol(window64(win, l), lim[0], tabs.rd[0], tabs.lit_sym,
+                     lim[1], tabs.rd[1], tabs.dist_sym);
+    }
+    plane[bit0 + l] = (int)(((unsigned)s.kind << 30) | ((unsigned)s.adv << 24) |
+                            ((unsigned)s.ta << 15) |
+                            (s.kind == K_MATCH ? (unsigned)(s.dist - 1) : 0u));
+    m0s[l] = (uint8_t)(s.kind == K_EOB || s.kind == K_BAD ? 255 : l % TILE + s.adv);
+  }
   __syncthreads();
 
-  // thread (tile, e): the tile's transfer map at entry phase e
-  const int lt = threadIdx.x / TILE, e = threadIdx.x % TILE;
-  const int t = blockIdx.x * K1_TILES + lt;
-  int x = e;
-  for (int k = 0; k < 32 && x < TILE; ++k) x = m0s[lt * TILE + x];
-  const int out = x >= 2 * TILE ? STOP : ((x - TILE) & 0xFF);
-  phi[(((size_t)(e >> 2) * T + t) << 2) + (e & 3)] = (uint8_t)out;
+  // 3. maps by doubling: warp w maps tiles w, w + 32, ..., lane e its
+  // phases e and e + 32
+  const int e = tid & 31;
+  uint8_t* wb = (uint8_t*)words;
+  for (int lt = tid >> 5; lt < kK1Tiles; lt += kK1Threads / 32) {
+    int a = m0s[lt * TILE + e], b = m0s[lt * TILE + e + 32];
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+      const int aa = __shfl_sync(0xFFFFFFFFu, a, a & 31);
+      const int ab = __shfl_sync(0xFFFFFFFFu, b, a & 31);
+      const int ba = __shfl_sync(0xFFFFFFFFu, a, b & 31);
+      const int bb = __shfl_sync(0xFFFFFFFFu, b, b & 31);
+      a = a >= TILE ? a : (a < 32 ? aa : ab);
+      b = b >= TILE ? b : (b < 32 ? ba : bb);
+    }
+    wb[((e >> 2) * kK1Tiles + lt) * 4 + (e & 3)] =
+        (uint8_t)(a >= 2 * TILE ? STOP : ((a - TILE) & 0xFF));
+    wb[(((e + 32) >> 2) * kK1Tiles + lt) * 4 + (e & 3)] =
+        (uint8_t)(b >= 2 * TILE ? STOP : ((b - TILE) & 0xFF));
+  }
+  __syncthreads();
+
+  // 4. the maps, a word a thread, a phase group's kK1Tiles words contiguous
+  for (int i = tid; i < 16 * kK1Tiles; i += kK1Threads) {
+    phib[(size_t)(i / kK1Tiles) * T + i % kK1Tiles] = words[i];
+  }
 }
 
 // The fields of the symbol at bit p, v = its plane word: (kind, adv, ta,
@@ -350,14 +417,15 @@ __global__ void __launch_bounds__(kK3Tiles)
 }  // namespace
 
 // row: uint8[M] of one lane, nbytes = min(M, pw / 8); plane: int32[pw];
-// phi: int32[16, pw / 64].
+// phi: int32[16, pw / 64]; pw a multiple of kK1Bits.
 extern "C" int tokenize_hier_k1d_launch(const void* row, int nbytes,
                                         const void* end_bits, const void* tab,
                                         void* plane, void* phi, int pw,
                                         void* stream) {
-  k1d_kernel<<<pw / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
+  if (pw < kK1Bits || pw % kK1Bits) return (int)cudaErrorInvalidValue;
+  k1d_kernel<<<pw / kK1Bits, kK1Threads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)row, nbytes, (const int*)end_bits, (const int*)tab,
-      (int*)plane, (uint8_t*)phi, pw / TILE);
+      (int*)plane, (unsigned*)phi, pw / TILE);
   return (int)cudaGetLastError();
 }
 

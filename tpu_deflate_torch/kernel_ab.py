@@ -33,8 +33,13 @@ decode, device ms unless said:
   * ``ent_from_phi`` and ``tokenize_dyn_hier`` (whose time includes it) on
     a block a third of the way into that -6 stream (T = 8192), and by the
     profiler's split the time of its own two kernels, K3d (the walk) and
-    K1d (the candidates and maps);
+    K1d (the candidates and maps), and K1d on the stream's shortest block
+    (the most bit positions past its end);
   * ``visited_from_adv`` on a dynamic header of that stream (T = 128);
+  * ``resolve_roots`` on the segment that ``decompress`` hands it for the
+    stored mix at -6 (1 MiB of the corpus, 256 KiB of seeded random bytes,
+    the next MiB, as ``chip_smoke.py`` builds it) and on a distance-1 run
+    over a whole segment (624640 positions);
   * ``decode_rows_batch`` of the 8 long rows, as ``decompress_indexed``
     calls it;
   * ``decompress`` of the zlib -6 stream: host clock, mean of 3 after one
@@ -216,7 +221,28 @@ def decode_ms(data: bytes, dev) -> dict:
     for key, part in (("K3d", "k3d_kernel"), ("K1d", "k1d_kernel")):
         ms[f"tokenize_dyn_hier -6 block, {key}"] = sum(
             v for k, v in split.items() if part in k) if split else float("nan")
+    short = min(blocks, key=lambda a: int(a[1][0]))  # the most dead bits
+    split = device_split(lambda: hier(*short))
+    ms["tokenize_dyn_hier shortest -6 block, K1d"] = sum(
+        v for k, v in split.items() if "k1d_kernel" in k) if split else float("nan")
     ms["visited_from_adv -6 header"] = device_ms(lambda: visit(*headers[mid % len(headers)]))
+
+    gen = torch.Generator().manual_seed(SEED)
+    noise = torch.randint(0, 256, (256 << 10,), generator=gen, dtype=torch.uint8)
+    mixed = data[: 1 << 20] + bytes(noise.numpy()) + data[1 << 20 : 2 << 20]
+    chains = []
+    resolve = spy(X, "resolve_roots", chains)
+    check(decompress(zlib.compress(mixed, 6), device=dev) == mixed,
+          "the stored mix did not decode")
+    X.resolve_roots = resolve
+    check(len(chains) >= 1 and chains[0][0].shape == (1, F.SEG_CAP),
+          f"{len(chains)} resolve_roots calls")
+    ms["resolve_roots stored-mix -6 segment"] = device_ms(lambda: resolve(*chains[0]))
+    at = torch.arange(F.SEG_CAP, device=dev)
+    d1 = ((at - 1).clamp_min(0).to(torch.int32)[None],
+          torch.randint(0, 256, (1, F.SEG_CAP), generator=gen,
+                        dtype=torch.int32).to(dev))
+    ms["resolve_roots distance-1 run 624640"] = device_ms(lambda: resolve(*d1))
 
     lcfg = DeflateConfig(chunk_size=1 << 20)
     lstream, lindex = compress_indexed(data, lcfg, device=dev)

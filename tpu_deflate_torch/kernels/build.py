@@ -40,7 +40,7 @@ SIGNATURES = {
     "expand3_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tokenize_dyn_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _I, _I, _I, _I, _I, _P],
-    "resolve_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "resolve_launch": [_P, _P, _P, _P, _I, _I, _P],
     "expand2_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
     "ent_from_phi_launch": [_P, _P, _P, _P, _I, _I, _P],
     "visited_from_adv_launch": [_P, _P, _P, _P, _P, _I, _I, _P],

@@ -1,4 +1,4 @@
-"""Back-reference resolution by pointer doubling (``csrc/resolve.cu``).
+"""Back-reference resolution (``csrc/resolve.cu``).
 
 Each output position points at its parent (itself for a literal or
 stored byte, the byte it copies for a match byte); the value of a
@@ -12,11 +12,11 @@ the second half of the expand kernels' plain versions.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from tpu_deflate_torch.kernels import build
+
+TILE = 4096  # csrc/resolve.cu's kTile: positions a block resolves in shared memory
 
 
 def resolve_roots_plain(parent: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
@@ -35,7 +35,9 @@ def resolve_roots(parent: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     int32[..., N], parents in [0, N) and every chain ending at a position
     that is its own parent; returns int32[..., N].
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel:
+    tiles resolved in shared memory, then chains chased across tiles, two
+    launches a call."""
     if parent.shape != val.shape:
         raise ValueError(f"resolve_roots: parent {tuple(parent.shape)} and "
                          f"val {tuple(val.shape)} differ in shape")
@@ -48,15 +50,10 @@ def resolve_roots(parent: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(val)
     if parent.numel() == 0:
         return out
-    # after the first launch and r jumps a pointer has moved 2^(r + 1)
-    # parents up, and no chain is longer than the row
-    rounds = max(1, math.ceil(math.log2(N)))
-    ptr = torch.empty_like(parent)
-    flags = torch.zeros(rounds + 2, dtype=torch.int32, device=parent.device)
+    ptr = torch.empty_like(parent)  # the pointer table, all written
     code = build.library().resolve_launch(
-        parent.data_ptr(), val.data_ptr(), ptr.data_ptr(), flags.data_ptr(),
-        out.data_ptr(), parent.numel() // N, N, rounds,
-        build.stream_handle(parent.device),
+        parent.data_ptr(), val.data_ptr(), ptr.data_ptr(), out.data_ptr(),
+        parent.numel() // N, N, build.stream_handle(parent.device),
     )
     build.check(code, "resolve")
     resolve_roots.launches += 1

@@ -94,6 +94,7 @@ WLK_BY_TIER = {3: 22, 2: 33}
 MIN_LIT_LEN_FOREIGN = 2
 HIER_WLK = WLK_BY_TIER[2]
 K3D_TILES = 128  # csrc/tokenize_hier.cu's kK3Tiles: tiles one block of K3d walks
+K1D_BITS = 2048  # csrc/tokenize_hier.cu's kK1Bits: bit positions one block of K1d decodes
 
 
 def rank_symbols(tab: torch.Tensor):
@@ -330,6 +331,38 @@ def _hier_maps_plain(rows: torch.Tensor, end_bits: torch.Tensor,
     return (kind, adv, ta, tb), phiP
 
 
+def hier_maps_plain(rows: torch.Tensor, end_bits: torch.Tensor,
+                    tab: torch.Tensor, pw: int):
+    """Plain version of ``hier_maps``: ``_hier_maps_plain``'s fields packed
+    as K1d packs them."""
+    (kind, adv, ta, tb), phiP = _hier_maps_plain(rows, end_bits, tab, pw)
+    plane = ((kind << 30) | (adv << 24) | (ta << 15)
+             | torch.where(kind == K_MATCH, tb - 1, 0))
+    return ((plane + (1 << 31)) & 0xFFFFFFFF) - (1 << 31), phiP
+
+
+def hier_maps(rows: torch.Tensor, end_bits: torch.Tensor, tab: torch.Tensor,
+              pw: int):
+    """K1d of ``tokenize_dyn_hier``: (plane int32[pw], the candidate
+    symbol's fields kind << 30 | adv << 24 | ta << 15 | dist - 1 at every
+    bit of the window, and phiP int32[1, 16, pw / 64], the packed transfer
+    maps of ``_hier_maps_plain``).  CPU tensors take the plain version,
+    CUDA tensors the kernel; ``tokenize_dyn_hier`` counts the launch."""
+    if rows.device.type == "cpu":
+        plane, phiP = hier_maps_plain(rows, end_bits, tab, pw)
+        return plane.to(torch.int32), phiP
+    build.require_cuda("tokenize_dyn_hier", rows, end_bits, tab)
+    dev = rows.device
+    plane = torch.empty(pw, dtype=torch.int32, device=dev)
+    phiP = torch.empty(1, 16, pw // TILE, dtype=torch.int32, device=dev)
+    code = build.library().tokenize_hier_k1d_launch(
+        rows.data_ptr(), min(rows.shape[1], pw // 8), end_bits.data_ptr(),
+        tab.data_ptr(), plane.data_ptr(), phiP.data_ptr(), pw,
+        build.stream_handle(dev))
+    build.check(code, "tokenize_hier_k1d")
+    return plane, phiP
+
+
 def _hier_walk_plain(fields, ent: torch.Tensor, end: int, out_base: int,
                     pw: int):
     """Walk every tile from its entry phase ent int32[1, 1, T] for at most
@@ -412,13 +445,7 @@ def tokenize_dyn_hier(rows: torch.Tensor, end_bits: torch.Tensor,
         return tokenize_dyn_hier_plain(rows, end_bits, tab, starts, pw)
     build.require_cuda("tokenize_dyn_hier", rows, end_bits, tab, starts)
     dev = rows.device
-    lib, stream = build.library(), build.stream_handle(dev)
-    plane = torch.empty(pw, dtype=torch.int32, device=dev)
-    phiP = torch.empty(1, 16, T, dtype=torch.int32, device=dev)
-    code = lib.tokenize_hier_k1d_launch(
-        rows.data_ptr(), min(rows.shape[1], pw // 8), end_bits.data_ptr(),
-        tab.data_ptr(), plane.data_ptr(), phiP.data_ptr(), pw, stream)
-    build.check(code, "tokenize_hier_k1d")
+    plane, phiP = hier_maps(rows, end_bits, tab, pw)
     ent = ent_from_phi(phiP, starts.reshape(()))
     # one zeroed allocation: the token buffers (zero past the count), meta,
     # and K3d's scratch (control words, then a 64-bit status word a run of
@@ -428,10 +455,11 @@ def tokenize_dyn_hier(rows: torch.Tensor, end_bits: torch.Tensor,
     tk, ta, tb = (buf[i * tokcap : (i + 1) * tokcap].view(1, tokcap) for i in range(3))
     meta = buf[3 * tokcap : 3 * tokcap + 4]
     scratch = buf[3 * tokcap + 8 :]
-    code = lib.tokenize_hier_k3d_launch(
+    code = build.library().tokenize_hier_k3d_launch(
         plane.data_ptr(), ent.data_ptr(), end_bits.data_ptr(), tab.data_ptr(),
         tk.data_ptr(), ta.data_ptr(), tb.data_ptr(), meta.data_ptr(),
-        scratch.data_ptr(), scratch.numel(), T, chunk, tokcap, stream)
+        scratch.data_ptr(), scratch.numel(), T, chunk, tokcap,
+        build.stream_handle(dev))
     build.check(code, "tokenize_hier_k3d")
     tokenize_dyn_hier.launches += 1
     return (tk, ta, tb, *meta.split(1))

@@ -295,12 +295,15 @@ def hier_edge_streams(run_tiles: int) -> dict:
     }
 
 
-def hier_lane(stream: bytes, pw: int, end=None, out_base: int = 0):
+def hier_lane(stream: bytes, pw: int, end=None, out_base: int = 0,
+              min_len: int = 2):
     """One block's lane as the device-paced decode hands it to
     ``tokenize_dyn_hier``: (rows uint8[1, pw / 8], end_bits, tab, starts
     int32 numpy), the window re-based at the first symbol's byte, the
     tables from the port's header parse with TAB_OUTBASE = out_base, the
-    end bit ``end`` (relative to the window) or the stream's own."""
+    end bit ``end`` (relative to the window) or the stream's own.  The
+    shortest literal/length code must be at least ``min_len`` bits (2,
+    the device-paced decode's domain, unless the caller says less)."""
     import torch
 
     from tpu_deflate_torch.kernels.tokenize_dyn import TAB_OUTBASE
@@ -312,13 +315,52 @@ def hier_lane(stream: bytes, pw: int, end=None, out_base: int = 0):
     prep = dyn_header_params_batch(torch.from_numpy(rows),
                                    torch.tensor([8 * len(s)], dtype=torch.int32))
     start = int(prep["start"][0])
-    assert bool(prep["ok"][0]) and int(prep["min_len"][0]) >= 2
+    assert bool(prep["ok"][0]) and int(prep["min_len"][0]) >= min_len
     tab = prep["tab"].numpy().astype(np.int32)
     tab[0, TAB_OUTBASE] = out_base
     base2 = start >> 3
     end_rel = 8 * len(s) - 8 * base2 if end is None else end
     return (rows[:, base2 : base2 + pw // 8].copy(), np.array([end_rel], np.int32),
             tab, np.array([start & 7], np.int32))
+
+
+def k1d_edge_lanes(pw: int) -> dict:
+    """Lanes (as ``hier_lane`` gives them) for the edges of the
+    tile-parallel tokenizer's candidates and maps (K1d): {name: lane}.
+
+    one_bit_code: a 1-bit literal code and runs of 300 of its literal, so
+      chains run 32 links without leaving their tile.
+    eob_phase0, eob_phase63: the end-of-block at phase 0 of a tile, and at
+      phase 63 (after a match of 17 bits, distance 4097).
+    wide: ``wide_block``'s 48-bit symbols, some crossing into the next
+      tile (its literal code also has a 1-bit code).
+    end_mid_tile, end_on_block: a block longer than the window cut at bit
+      37 of a tile, and on a boundary of K1d's blocks (K1D_BITS)."""
+    from tpu_deflate_torch.kernels.tokenize_dyn import K1D_BITS
+
+    lit = [0] * 286
+    lit[97], lit[256], lit[98], lit[257] = 1, 2, 3, 3
+    dist = [0] * 30
+    dist[0] = 1
+    toks = ([("lit", 98)] + [("lit", 97)] * 300 + [("match", 3, 1)] * 20
+            + [("lit", 98), ("lit", 97)] * 40 + [("lit", 97)] * 300)
+    one_bit = hand_block(lit, dist, toks)
+    eob0, _ = _edge_block(EDGE_LIT, lambda out: [], 7, after=0)
+
+    def at_63(out):
+        assert out >= 4097  # distance 4097 has 11 extra bits: 17 bits in all
+        return [("match", 3, 4097)] + [("lit", 97)] * 55
+
+    eob63, _ = _edge_block(EDGE_LIT, at_63, 150, after=0)
+    long_, _ = _edge_block(EDGE_LIT, lambda out: [], 520, after=200)
+    return {
+        "one_bit_code": hier_lane(one_bit, pw, min_len=1),
+        "eob_phase0": hier_lane(eob0, pw),
+        "eob_phase63": hier_lane(eob63, pw),
+        "wide": hier_lane(wide_block(), pw, min_len=1),
+        "end_mid_tile": hier_lane(long_, pw, 64 * 300 + 37),
+        "end_on_block": hier_lane(long_, pw, 5 * K1D_BITS),
+    }
 
 
 def visit_edge_cases(seed: int) -> dict:
@@ -353,3 +395,55 @@ def visit_edge_cases(seed: int) -> dict:
     return {name: (a.reshape(-1, 64).T.astype(np.int32).copy(),
                    t.reshape(-1, 64).T.astype(np.int32).copy(), p0)
             for name, (a, t, p0) in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# resolve_roots' edges
+# ---------------------------------------------------------------------------
+
+
+def _chains(order, last):
+    """Parents int64[N] of chains through the positions ``order`` (a
+    permutation of the row): each position's parent is the next one in
+    order, and a position where ``last`` is set ends its chain, a root."""
+    parent = np.arange(len(order))
+    parent[order] = np.where(last, order, np.roll(order, -1))
+    return parent
+
+
+def resolve_edge_forests(tile: int, seed: int) -> dict:
+    """Forests for the edges of a resolve_roots that resolves tiles of
+    ``tile`` positions and chases chains across them: {name: (parent,
+    val int32 numpy [B, N])}.
+
+    forward: chains through a seeded permutation of the row, cut into
+      chains of 1 to 4 tiles' length, so parents lie after and before
+      their positions, near and far.
+    zigzag: one chain over 16 tiles and 5 positions, 0, N - 1, 1, N - 2,
+      ...: every link crosses tiles, alternately forward and backward.
+    rows_b3: three rows of 2.5 tiles and 3 positions (no tile multiple):
+      parents up to the row's length back, 4 in 5 of them; a distance-1
+      run; a run whose parents lie one after (the root is the last).
+    n1: two rows of one position."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    N = 5 * tile + 37
+    last = np.zeros(N, bool)
+    cuts = np.cumsum(rng.integers(1, 4 * tile, N))
+    last[cuts[cuts < N] - 1] = True
+    last[-1] = True
+    out["forward"] = _chains(rng.permutation(N), last)[None]
+    N = 16 * tile + 5
+    order = np.empty(N, np.int64)
+    order[0::2] = np.arange((N + 1) // 2)
+    order[1::2] = N - 1 - np.arange(N // 2)
+    out["zigzag"] = _chains(order, np.arange(N) == N - 1)[None]
+    N = 2 * tile + tile // 2 + 3
+    at = np.arange(N)
+    back = rng.integers(1, N, N)
+    far = np.where(rng.random(N) < 0.8, np.maximum(at - back, 0), at)
+    out["rows_b3"] = np.stack([far, np.maximum(at - 1, 0), np.minimum(at + 1, N - 1)])
+    out["n1"] = np.zeros((2, 1), np.int64)
+    return {name: (p.astype(np.int32),
+                   rng.integers(0, 256, p.shape).astype(np.int32))
+            for name, p in out.items()}
