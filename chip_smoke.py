@@ -105,9 +105,30 @@ Phases, each of which raises on failure:
                and decompress_indexed, a counted run; zlib reads the
                stream; each kernel call of that run again, on the same
                arguments, against its plain version
+  9. gzip and streaming — four counted runs: compress_gzip_members of
+               the 8 MiB with DEFAULT, then decompress_gzip of it (the
+               members as lanes); decompress_gzip of gzip -6 of the 8 MiB
+               and of 8 gzip -6 members of 1 MiB (the device-paced decode
+               from each member's body); StreamDecompressor over zlib -6
+               of the 8 MiB in 64 KiB slices (a stream step a Huffman
+               block, with a 32 KiB window after the first).  Each result
+               must equal the input, gzip must read the members, and
+               they must equal the JAX package's, pinned below; the first
+               call of each kernel in each run (the first two in the
+               stream run) is held against its plain version; all eleven
+               kernels must launch across the four runs; the host-clock
+               median and spread of three runs of each decode and the
+               number of stream steps are logged.  Outside the counts:
+               StreamDecompressor over the port's own stream and over
+               zlib -6 of 1 MiB in 4 KiB slices, StreamCompressor of the
+               8 MiB in slices of 1000003 bytes (pinned), compress_gzip
+               (its body the pinned DEFAULT stream's), gzip members with
+               FNAME, FCOMMENT, FEXTRA and FHCRC, and a member that falls
+               back (a 1-bit literal code)
 Phase 3 also checks the dynamic path's two kernels on its 128 lanes.
 Every launch count is set to 0 just before each counted run (phases 4 and
-6, the two of 7, the three of 7b, and 8) and read just after it.  The
+6, the two of 7, the three of 7b, 8, and the four of 9) and read just
+after it.  The
 line before the last is {"kernels": [...]}: "launches_by_path" holds each
 kernel's count in each of those runs and "launches" the count on the path
 that brought the kernel in (OWN_PATH); the last line is {"ok": true,
@@ -137,6 +158,12 @@ PIN_STATIC = (4869675,
               "9db8f28dac24c06f49303b3b97b33c2d28972cda04a0caa3bc00ed46e2cef786")
 PIN_DYNAMIC = (3695814,
                "b9db8274d7ff8988ce18f8e79e3e8dd2d814da3f09b9d8f016a8383b13ae0faa")
+# and with DEFAULT its compress_gzip_members, and its StreamCompressor fed
+# slices of 1000003 bytes
+PIN_GZIP_MEMBERS = (4872694,
+                    "a9953cb5ad6fc76ce0b76a59dd51b8a2ed2212d965a74d0c1391d2357779ed64")
+PIN_STREAM = (4869681,
+              "a398e34cf515c19af63f6b5fe883d63a6d14788119a56776f64422851fead78d")
 
 
 # NVIDIA's data sheet for the H100 SXM: device memory rate, and the float32
@@ -500,6 +527,35 @@ def capture(module, name: str, calls: list):
     return fn
 
 
+def clone(x):
+    """A copy of x in which every tensor, also inside tuples, lists and
+    dicts, is cloned."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(clone(v) for v in x)
+    if isinstance(x, dict):
+        return {k: clone(v) for k, v in x.items()}
+    return x
+
+
+def capture_first(module, name: str, calls: list, keep: int):
+    """Like ``capture``, but records (args, kwargs) cloned as they were
+    passed (a kernel may write into its arguments), of the first ``keep``
+    calls only."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        if len(calls) < keep:
+            calls.append((clone(args), clone(kw)))
+        return fn(*args, **kw)
+
+    setattr(module, name, wrapper)
+    return fn
+
+
 def main() -> None:
     import torch
 
@@ -509,11 +565,17 @@ def main() -> None:
         DEFAULT,
         DeflateConfig,
         DeflateError,
+        StreamCompressor,
+        StreamDecompressor,
         compress,
+        compress_gzip,
+        compress_gzip_members,
         compress_indexed,
         decompress,
+        decompress_gzip,
         decompress_indexed,
     )
+    from tpu_deflate_torch import api as A
     from tpu_deflate_torch.kernels import build
     from tpu_deflate_torch.kernels import tokenize_dyn as KD
     from tpu_deflate_torch.kernels.chase1 import (
@@ -1517,7 +1579,7 @@ def main() -> None:
 
     whole = staged_run(
         [(D, "tokenize"), (D, "dyn_header_params_batch"),
-         (D, "tokenize_dyn_batch"), (D, "expand_segments"), (F, "expand_batch")],
+         (D, "tokenize_dyn_batch"), (F, "expand_segments"), (F, "expand_batch")],
         lambda: general(zs6, data))
     log("single stream, zlib -6, general pipeline, stages (host clock, "
         f"synchronized): whole {whole:.3f} s; walk {spent['tokenize']:.3f} s, "
@@ -1661,6 +1723,199 @@ def main() -> None:
             f"{tuple(args[0].shape[1:])}; device {fmt_ms(dev_ms)}, "
             f"host-paced {ms:.4f} ms{extra} on {name}, {smi}")
     require(seen[3][0][5] == 1 << 20, f"long-row expansion at {seen[3][0][5]}")
+
+    # ---- 9. gzip and streaming ------------------------------------------
+    t9 = time.perf_counter()
+    plain_of = {c[0]: c[4] for c in cases}
+    kernel_sites = [
+        (E, "match_bitplane_batch"), (E, "mono_scatter_add"), (H, "mono_compact"),
+        (D, "tokenize_static_batch"), (D, "tokenize_dyn_batch"),
+        (X, "expand_fused3"), (X, "resolve_roots"), (X, "expand_fused2"),
+        (KD, "ent_from_phi"), (F, "visited_from_adv"), (F, "tokenize_dyn_hier"),
+    ]
+    steps = {"calls": 0, "waits": 0}
+    stream_step = A.inflate_stream_step
+
+    def counted_step(*a, **kw):
+        out = stream_step(*a, **kw)
+        steps["calls"] += 1
+        steps["waits"] += out == (b"", 0, False)
+        return out
+
+    def checked(path: str, drive, must, keep: int = 1):
+        """A counted run of phase 9 with the first ``keep`` calls of each
+        kernel captured (arguments cloned as they were passed), then held
+        against the plain version outside the counts.  Returns (drive's
+        result, counts, calls held)."""
+        seen = {f: [] for _, f in kernel_sites}
+        originals = [capture_first(m, f, seen[f], keep) for m, f in kernel_sites]
+        steps.update(calls=0, waits=0)
+        A.inflate_stream_step = counted_step
+        try:
+            out, counts = counted(path, drive, must)
+        finally:
+            A.inflate_stream_step = stream_step
+            for (m, f), fn in zip(kernel_sites, originals):
+                setattr(m, f, fn)
+        held = 0
+        for (_, f), fn in zip(kernel_sites, originals):
+            for args, kw in seen[f]:
+                got = fn(*clone(args), **clone(kw))
+                want = plain_of[f](*clone(args), **clone(kw))
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                err = max_abs_err(got, want)
+                require(err == 0, f"{f} differs from its plain version on the "
+                        f"{path} run by {err}")
+                held += 1
+        return out, counts, held
+
+    def median_spread(fn, first: float):
+        """Median and spread (max - min) of host seconds: ``first`` and
+        two more runs of fn."""
+        runs = [first]
+        for _ in range(2):
+            t = time.perf_counter()
+            fn()
+            runs.append(time.perf_counter() - t)
+        return sorted(runs)[1], max(runs) - min(runs)
+
+    def host_s(fn):
+        t = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t
+
+    def feed(dec, stream, step):
+        return b"".join(dec.decompress(stream[i : i + step])
+                        for i in range(0, len(stream), step)) + dec.flush()
+
+    new_runs = {}
+    # self-indexing members: the encoder, then the members as lanes
+    def members_run():
+        g = compress_gzip_members(data, cfg, device=dev)
+        return g, host_s(lambda: decompress_gzip(g, cfg, device=dev))
+
+    (members, (back, dec_s)), counts, held = checked(
+        "gzip_members", members_run,
+        ("match_bitplane_batch", "mono_scatter_add", "tokenize_static_batch",
+         "expand_fused3"))
+    new_runs["gzip_members"] = counts
+    require(back == data, "decompress_gzip did not return the input")
+    require(gzip.decompress(members) == data, "gzip rejects the members")
+    require_pinned(members, PIN_GZIP_MEMBERS, "compress_gzip_members")
+    med, spread = median_spread(lambda: decompress_gzip(members, cfg, device=dev), dec_s)
+    log(f"gzip members: {len(data)} B -> {len(members)} B in {len(index)} members, "
+        f"gzip verified, equal to the JAX package's; decompress_gzip median "
+        f"{med:.4f} s, spread {spread:.4f} s of 3 (host clock); {held} kernel "
+        f"calls equal to plain; launches {counts} on {name}, {smi}")
+
+    # one foreign member: the device-paced decode from the member's body
+    gz6 = gzip.compress(data, 6)
+    (back, dec_s), counts, held = checked(
+        "gzip_foreign", lambda: host_s(lambda: decompress_gzip(gz6, device=dev)), path)
+    new_runs["gzip_foreign"] = counts
+    require(back == data, "decompress_gzip of gzip -6 did not return the input")
+    require(counts["visited_from_adv"] == counts["tokenize_dyn_hier"] == blocks,
+            f"gzip -6: not one launch a dynamic block ({blocks}): {counts}")
+    med, spread = median_spread(lambda: decompress_gzip(gz6, device=dev), dec_s)
+    log(f"gzip -6, one member: {len(gz6)} B -> {len(data)} B device-paced, "
+        f"median {med:.4f} s, spread {spread:.4f} s of 3 (host clock); {held} "
+        f"kernel calls equal to plain; launches {counts} on {name}, {smi}")
+
+    # eight foreign members of 1 MiB: each decoded from its bit in the buffer
+    gz8 = b"".join(gzip.compress(data[i : i + (1 << 20)], 6)
+                   for i in range(0, SIZE, 1 << 20))
+    (back, dec_s), counts, held = checked(
+        "gzip_foreign_members", lambda: host_s(lambda: decompress_gzip(gz8, device=dev)),
+        path)
+    new_runs["gzip_foreign_members"] = counts
+    require(back == data, "decompress_gzip of 8 members did not return the input")
+    med, spread = median_spread(lambda: decompress_gzip(gz8, device=dev), dec_s)
+    log(f"gzip -6, 8 members of 1 MiB: {len(gz8)} B -> {len(data)} B "
+        f"device-paced, median {med:.4f} s, spread {spread:.4f} s of 3 (host "
+        f"clock); {held} kernel calls equal to plain; launches {counts} on "
+        f"{name}, {smi}")
+
+    # the zlib -6 stream through StreamDecompressor in 64 KiB slices: a step
+    # a Huffman block, each after the first carrying a 32 KiB window
+    (back, dec_s), counts, held = checked(
+        "stream_zlib6",
+        lambda: host_s(lambda: feed(StreamDecompressor(DEFAULT, device=dev), zs6,
+                                    1 << 16)),
+        ("tokenize_static_batch", "mono_compact", "tokenize_dyn_batch",
+         "resolve_roots"), keep=2)
+    new_runs["stream_zlib6"] = counts
+    require(back == data, "StreamDecompressor of zlib -6 did not return the input")
+    nsteps, nwaits = steps["calls"], steps["waits"]
+    require(nsteps - nwaits == blocks, f"{nsteps - nwaits} steps that decoded, "
+            f"{blocks} blocks")
+    med, spread = median_spread(
+        lambda: feed(StreamDecompressor(DEFAULT, device=dev), zs6, 1 << 16), dec_s)
+    log(f"StreamDecompressor, zlib -6 in slices of 64 KiB: {len(zs6)} B -> "
+        f"{len(data)} B in {nsteps} steps, {nwaits} of them (b'', 0, False); "
+        f"median {med:.4f} s, spread {spread:.4f} s of 3 (host clock); {held} "
+        f"kernel calls equal to plain (the first two of each: the static "
+        f"tokenizer from the synthetic stored block with stop_at_eob, "
+        f"resolve_roots with and without a 32 KiB window); launches {counts} "
+        f"on {name}, {smi}")
+    every = {k for c in new_runs.values() for k, v in c.items() if v}
+    require(every == {r["name"] for r in results},
+            f"kernels that never launched on the new runs: "
+            f"{sorted({r['name'] for r in results} - every)}")
+
+    # outside the counts: the port's own stream, the start of -6 in 4 KiB
+    # slices, StreamCompressor, compress_gzip, gzip header fields, FALLBACK
+    back = feed(StreamDecompressor(DEFAULT, device=dev), stream, 1 << 20)
+    require(back == data, "StreamDecompressor of the port's stream differs")
+    z1 = zlib.compress(data[: 1 << 20], 6)
+    steps.update(calls=0, waits=0)
+    A.inflate_stream_step = counted_step
+    back = feed(StreamDecompressor(DEFAULT, device=dev), z1, 4096)
+    A.inflate_stream_step = stream_step
+    require(back == data[: 1 << 20], "StreamDecompressor of 1 MiB at -6 differs")
+    log(f"StreamDecompressor: the port's own stream in 1 MiB slices, and zlib "
+        f"-6 of 1 MiB in 4 KiB slices ({steps['calls']} steps, "
+        f"{steps['waits']} of them (b'', 0, False)), equal to the input")
+    comp = StreamCompressor(DEFAULT, device=dev)
+    sc = b"".join(comp.compress(data[i : i + 1000003])
+                  for i in range(0, SIZE, 1000003)) + comp.flush()
+    require(zlib.decompress(sc) == data, "zlib rejects StreamCompressor's stream")
+    require_pinned(sc, PIN_STREAM, "StreamCompressor")
+    gz1 = compress_gzip(data, cfg, device=dev)
+    require(gz1[10:-8] == stream[2:-4] and gzip.decompress(gz1) == data,
+            "compress_gzip's body is not the pinned DEFAULT stream's")
+    log("StreamCompressor in slices of 1000003 B: zlib verified, equal to the "
+        "JAX package's; compress_gzip: the body of the pinned DEFAULT stream, "
+        "gzip verified")
+    text = data[: 300000]
+
+    def member(payload, flags, level=6, strategy=zlib.Z_DEFAULT_STRATEGY,
+               fields=b""):
+        head = b"\x1f\x8b\x08" + bytes([flags]) + bytes(4) + b"\x00\xff" + fields
+        if flags & 0x02:
+            head += (zlib.crc32(head) & 0xFFFF).to_bytes(2, "little")
+        co = zlib.compressobj(level, zlib.DEFLATED, -15, 8, strategy)
+        return (head + co.compress(payload) + co.flush()
+                + zlib.crc32(payload).to_bytes(4, "little")
+                + len(payload).to_bytes(4, "little"))
+
+    fields = member(text[:100000], 0x08, fields=b"a.txt\x00") + member(
+        text[100000:], 0x1E, 9, fields=b"\x02\x00xyb.txt\x00a comment\x00")
+    require(gzip.decompress(fields) == text
+            and decompress_gzip(fields, device=dev) == text,
+            "gzip members with FNAME, FCOMMENT, FEXTRA, FHCRC did not decode")
+    served.clear()
+    D.inflate_foreign_device = spy_foreign
+    skewed = member(skew, 0, 9, zlib.Z_HUFFMAN_ONLY) + member(text, 0)
+    back = decompress_gzip(skewed, device=dev)
+    D.inflate_foreign_device = inflate_foreign
+    require(back == skew + text and gzip.decompress(skewed) == back,
+            "a gzip member that falls back did not decode")
+    require([x is None for x in served] == [True, False],
+            f"FALLBACK on the members: {[x is None for x in served]}")
+    log(f"decompress_gzip: members with FNAME, FCOMMENT, FEXTRA and FHCRC, and a "
+        f"member with a 1-bit literal code (FALLBACK) before another, equal to "
+        f"gzip; phase 9 took {time.perf_counter() - t9:.1f} s (host clock)")
 
     for r in results:
         r["launches"] = r["launches_by_path"][OWN_PATH[r["name"]]]

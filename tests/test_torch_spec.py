@@ -144,15 +144,36 @@ def test_adler32_fold_matches_zlib():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, tpu_deflate_torch; "
+    """Importing every module, then decompress_gzip and a
+    StreamDecompressor on the CPU, bring in neither jax nor tpu_deflate."""
+    code = ("import gzip, sys, zlib, tpu_deflate_torch as td; "
             "import tpu_deflate_torch.kernels.expand2, "
             "tpu_deflate_torch.kernels.resolve, tpu_deflate_torch.ops.expand, "
             "tpu_deflate_torch.ops.foreign, tpu_deflate_torch.kernels.chase1, "
             "tpu_deflate_torch.kernels.tokenize_dyn, tpu_deflate_torch.ops.header, "
             "tpu_deflate_torch.lanes; "
+            "data = b'gzip and streaming, ' * 300; "
+            "cfg = td.DeflateConfig(chunk_size=4096); "
+            "g = td.compress_gzip_members(data, cfg, device='cpu'); "
+            "assert td.decompress_gzip(g, cfg, device='cpu') == data; "
+            "assert td.decompress_gzip(gzip.compress(data), device='cpu') == data; "
+            "z = zlib.compress(data, 6); "
+            "d = td.StreamDecompressor(cfg, device='cpu'); "
+            "out = b''.join(d.decompress(z[i : i + 40]) for i in range(0, len(z), 40)); "
+            "assert out + d.flush() == data; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'tpu_deflate' not in sys.modules, 'tpu_deflate imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)
+
+
+def test_exports_equal():
+    import tpu_deflate
+    import tpu_deflate_torch
+
+    assert tpu_deflate_torch.__all__ == tpu_deflate.__all__
+    assert tpu_deflate_torch.__version__ == tpu_deflate.__version__
+    for name in tpu_deflate_torch.__all__:
+        assert hasattr(tpu_deflate_torch, name), name
 
 
 def test_port_sources_name_no_jax():

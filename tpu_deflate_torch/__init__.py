@@ -7,19 +7,34 @@ in ``csrc/``; tensors on the CPU run each kernel's plain PyTorch version.
 
 Quick start::
 
-    import zlib
-    from tpu_deflate_torch import (DEFAULT, compress_indexed, decompress,
+    import gzip, zlib
+    from tpu_deflate_torch import (DEFAULT, StreamDecompressor,
+                                   compress_gzip_members, compress_indexed,
+                                   decompress, decompress_gzip,
                                    decompress_indexed)
 
     stream, index = compress_indexed(data, DEFAULT, device="cuda")
     assert decompress_indexed(stream, index, DEFAULT, device="cuda") == data
     assert decompress(zlib.compress(data, 6), device="cuda") == data
+    members = compress_gzip_members(data, DEFAULT, device="cuda")
+    assert decompress_gzip(members, DEFAULT, device="cuda") == data
+    assert decompress_gzip(gzip.compress(data), device="cuda") == data
+    d = StreamDecompressor(DEFAULT, device="cuda")
+    z = zlib.compress(data, 6)
+    out = b"".join(d.decompress(z[i : i + 65536])
+                   for i in range(0, len(z), 65536))
+    assert out + d.flush() == data
 """
 
 from tpu_deflate_torch.api import (
+    StreamCompressor,
+    StreamDecompressor,
     compress,
+    compress_gzip,
+    compress_gzip_members,
     compress_indexed,
     decompress,
+    decompress_gzip,
     decompress_indexed,
 )
 from tpu_deflate_torch.config import (
@@ -33,6 +48,8 @@ from tpu_deflate_torch.config import (
 )
 from tpu_deflate_torch.ref.inflate import DeflateError
 
+__version__ = "0.1.0"
+
 __all__ = [
     "DeflateConfig",
     "DeflateError",
@@ -42,8 +59,14 @@ __all__ = [
     "FULL_WINDOW",
     "LOWLUT",
     "REFERENCE_PARITY",
+    "StreamCompressor",
+    "StreamDecompressor",
     "compress",
+    "compress_gzip",
+    "compress_gzip_members",
     "compress_indexed",
     "decompress",
+    "decompress_gzip",
     "decompress_indexed",
+    "__version__",
 ]

@@ -8,6 +8,8 @@ header parse of ``ops/header.py``), stage 2 expands the tokens into bytes
 ``zlib_decompress_device`` decode any DEFLATE or zlib stream: on a CUDA
 device through the device-paced decode of ``ops/foreign.py``, else, or
 where that reports FALLBACK, through ``tokenize`` and the expansion.
+``inflate_stream_step`` decodes a partial stream a block at a time, on
+every device through ``tokenize``.
 """
 
 from __future__ import annotations
@@ -30,12 +32,8 @@ from tpu_deflate_torch.kernels.tokenize import (
 )
 from tpu_deflate_torch.kernels.tokenize_dyn import tokenize_dyn_batch
 from tpu_deflate_torch.ops.checksum import adler32_fold, adler32_state
-from tpu_deflate_torch.ops.expand import expand, expand_batch, pow2_at_least
-from tpu_deflate_torch.ops.foreign import (
-    SEG,
-    expand_segments,
-    inflate_foreign_device,
-)
+from tpu_deflate_torch.ops.expand import expand_batch, pow2_at_least
+from tpu_deflate_torch.ops.foreign import expand_stream, inflate_foreign_device
 from tpu_deflate_torch.ops.header import (
     CL_WIN,
     MAX_SYMS,
@@ -209,21 +207,27 @@ def decode_rows_batch(rows: torch.Tensor, ends: torch.Tensor, out_cap: int,
 
 def tokenize(data: torch.Tensor, start_bit: int, tok_cap: int,
              end_bit: int | None = None, pwin: int = 1 << 18,
-             static_only: bool = False, one_block: bool = False):
+             static_only: bool = False, one_block: bool = False,
+             stop_at_eob: bool = False, return_bfinal: bool = False):
     """Stage 1 of a whole stream: all blocks of data uint8[M] from
     start_bit up to the final block -> (tk, ta, tb int32[tok_cap], tp,
     out_total, end_pos, err), the last four Python ints; the result of
-    ``tpu_deflate.ops.decode.tokenize(stop_at_eob=False)`` with the same
-    ``pwin``, ``static_only`` (a dynamic block is ERR_DYNAMIC) and
-    ``one_block`` (the first block of any type ends the stream).
+    ``tpu_deflate.ops.decode.tokenize`` with the same ``pwin``,
+    ``static_only`` (a dynamic block is ERR_DYNAMIC), ``one_block`` (the
+    first block of any type ends the stream) and ``stop_at_eob`` (the
+    first Huffman block's end-of-block ends the walk; stored blocks do
+    not, unless final).  ``return_bfinal`` appends the BFINAL bit of the
+    block in which the walk stopped; it needs ``stop_at_eob``.
 
     The block loop runs on the host, over the two tokenizer kernels: the
     static kernel walks stored and static blocks until the stream ends or a
     dynamic header stops it; that header is parsed on the device and the
     dynamic kernel decodes its block into the same token buffers, with
     distances bounded by all output so far.  After each kernel the host
-    reads the lane's four counters, and it reads block types from its own
-    copy of the stream."""
+    reads the lane's four counters, and it reads block types, and BFINAL,
+    from its own copy of the stream."""
+    if return_bfinal and not stop_at_eob:
+        raise ValueError("tokenize: return_bfinal needs stop_at_eob")
     dev = data.device
     M = data.shape[0]
     nbits = 8 * M
@@ -233,7 +237,7 @@ def tokenize(data: torch.Tensor, start_bit: int, tok_cap: int,
     ends = torch.tensor([end], dtype=torch.int32, device=dev)
     tk, ta, tb = (torch.zeros(1, tok_cap, dtype=torch.int32, device=dev)
                   for _ in range(3))
-    pos, tp, total, err = int(start_bit), 0, 0, ERR_OK
+    pos, tp, total, err, bfinal = int(start_bit), 0, 0, ERR_OK, 0
     first = True
 
     def counters(res):
@@ -244,9 +248,7 @@ def tokenize(data: torch.Tensor, start_bit: int, tok_cap: int,
             if pos < end:  # stopped short of the end, not at a block's edge
                 err = ERR_OVERFLOW if tp >= tok_cap - 1 else ERR_INPUT
             break
-        byte = pos >> 3
-        hdr = (int.from_bytes(host[byte : byte + 2].tobytes(), "little")
-               >> (pos & 7))
+        hdr = _bits(host, pos, 3)
         state = torch.tensor([[pos, tp, total]], dtype=torch.int32, device=dev)
         if (hdr >> 1) & 3 == 2 and not static_only:
             prep = dyn_header_params_batch(rows, ends, state[:, 0], state[:, 2],
@@ -257,20 +259,49 @@ def tokenize(data: torch.Tensor, start_bit: int, tok_cap: int,
                                      into=(tk, ta, tb))
             tk, ta, tb = res[:3]
             tp, total, pos, err = counters(res)
-            if err != ERR_OK or hdr & 1 or one_block:
+            bfinal = hdr & 1
+            if err != ERR_OK or hdr & 1 or one_block or stop_at_eob:
                 break
         else:
+            walked = pos
             res = tokenize_static_batch(
-                rows, ends, tok_cap, pwin, stop_at_eob=False,
+                rows, ends, tok_cap, pwin, stop_at_eob=stop_at_eob,
                 one_block=one_block, resume=(tk, ta, tb, state),
                 later=not first)
             tk, ta, tb = res[:3]
             tp, total, pos, err = counters(res)
+            if return_bfinal:
+                bfinal = _last_bfinal(host, walked, pos)
             if err != ERR_DYNAMIC or static_only:
                 break
             err = ERR_OK  # the dynamic block at pos is decoded next
         first = False
+    if return_bfinal:
+        return tk[0], ta[0], tb[0], tp, total, pos, err, bfinal
     return tk[0], ta[0], tb[0], tp, total, pos, err
+
+
+def _bits(host: np.ndarray, pos: int, nbits: int) -> int:
+    """nbits (<= 9) bits at bit pos of a host copy of the stream; bytes
+    past its end read as zero."""
+    byte = pos >> 3
+    return ((int.from_bytes(host[byte : byte + 2].tobytes(), "little")
+             >> (pos & 7)) & ((1 << nbits) - 1))
+
+
+def _last_bfinal(host: np.ndarray, pos: int, stop: int) -> int:
+    """BFINAL of the block in which a walk under ``stop_at_eob`` that
+    started at bit pos stopped at bit stop: the walk passes stored blocks
+    (skipped here by their LEN) up to a final one or a Huffman block,
+    where it ends."""
+    while True:
+        hdr = _bits(host, pos, 3)
+        if hdr & 1 or (hdr >> 1) & 3:
+            return hdr & 1
+        p = (pos + 3 + 7) & ~7
+        pos = p + 32 + 8 * (_bits(host, p, 8) | _bits(host, p + 8, 8) << 8)
+        if pos >= stop:
+            return 0
 
 
 def _pick_pwin(nbytes: int) -> int:
@@ -337,14 +368,69 @@ def _inflate_general(data, start_bit: int = 0, out_cap: int | None = None,
             raise DeflateError(
                 f"corrupt stream: {ERR_NAMES.get(err, f'error code {err}')}"
             )
-        live = max(tp, 1)  # the expanders index a row of at least one slot
-        tk, ta, tb = tk[:live], ta[:live], tb[:live]
-        if total <= SEG + 256:
-            out, _ = expand(arr, tk, ta, tb, tp,
-                            max(1 << 12, pow2_at_least(total)))
-        else:
-            out = expand_segments(arr, tk, ta, tb, total)
-        return out.cpu().numpy(), total, pos
+        return expand_stream(arr, tk, ta, tb, tp, total).cpu().numpy(), total, pos
+
+
+def _shift_right_bits(data: bytes, k: int) -> bytes:
+    """Drop the low k bits (0-7) of an LSB-first bitstream: output byte i
+    carries input bits [8i + k, 8i + k + 8)."""
+    if k == 0:
+        return bytes(data)
+    a = np.frombuffer(bytes(data), np.uint8).astype(np.uint16)
+    nxt = np.concatenate([a[1:], np.zeros(1, np.uint16)])
+    return (((a >> k) | ((nxt << (8 - k)) & 0xFF)) & 0xFF).astype(np.uint8).tobytes()
+
+
+def inflate_stream_step(window: bytes, pending: bytes, pbit: int,
+                        static_only: bool = False, device="cuda"):
+    """One step of an incremental inflate on ``device``: the next run of
+    blocks of a partial stream, up to the first Huffman block's
+    end-of-block.  ``window`` is the last <= 32 KiB of output so far;
+    ``pending`` the compressed bytes not consumed yet, of whose first byte
+    the low ``pbit`` bits are.  Returns (emitted bytes, bits of pending
+    consumed, whether that block was final); (b"", 0, False) where the
+    block is not all buffered yet (or is corrupt: the caller's flush finds
+    that), so the caller feeds more input and tries again.  Raises
+    DeflateError on a dynamic block under ``static_only``.
+
+    The stream decoded is a stored block that carries the window, so the
+    block's distances reach into it, then pending shifted by pbit,
+    bounded by its end bit; the walk is ``tokenize``'s, with the token
+    capacity doubled while it overflows."""
+    W = len(window)
+    if W > 0xFFFF:  # the JAX package's type (an assert there)
+        raise AssertionError("a stored block carries at most 65535 bytes")
+    prefix = (b"\x00" + W.to_bytes(2, "little") + (W ^ 0xFFFF).to_bytes(2, "little")
+              + bytes(window))
+    raw = np.frombuffer(prefix + _shift_right_bits(pending, pbit), np.uint8)
+    m = len(raw)
+    m_pad = max(1 << 12, pow2_at_least(m))
+    arr = torch.from_numpy(np.pad(raw, (0, m_pad - m))).to(device)
+    end_bit = 8 * len(prefix) + 8 * len(pending) - pbit
+    cap = max(1 << 12, pow2_at_least(W + 4 * len(pending)))
+    pwin = _pick_pwin(m_pad)
+    while True:
+        tk, ta, tb, tp, total, pos, err, bfinal = tokenize(
+            arr, 0, cap + 16, end_bit=end_bit, pwin=pwin,
+            static_only=static_only, stop_at_eob=True, return_bfinal=True)
+        if err == ERR_OVERFLOW or (err == ERR_OK and total > cap):
+            cap *= 2
+            if cap > 1 << 31:
+                raise ValueError("output too large")
+            continue
+        if err == ERR_DYNAMIC:
+            raise DeflateError(
+                "dynamic-Huffman block rejected: decoder compiled with "
+                "dynamic=False/low_lut (reference DYNAMIC flag, "
+                "deflate.py:25)"
+            )
+        # a block cut short (or corrupt), or parsed past the buffered
+        # input (a stored payload cut after its header): wait for more
+        consumed = pos - 8 * len(prefix)
+        if err != ERR_OK or pos > end_bit or consumed <= 0:
+            return b"", 0, False
+        out = expand_stream(arr, tk, ta, tb, tp, total)
+        return out[W:total].cpu().numpy().tobytes(), consumed, bool(bfinal)
 
 
 def zlib_decompress_device(data: bytes, config: DeflateConfig = DeflateConfig(),

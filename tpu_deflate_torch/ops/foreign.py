@@ -248,10 +248,17 @@ def inflate_foreign_device(data, start_bit: int = 0, device="cuda"):
     if mode != DONE:
         raise DeflateError(
             f"corrupt stream: {ERR_NAMES.get(err, f'error code {err}')}")
+    return expand_stream(arr, tk, ta, tb, tp, total).cpu().numpy(), total, pos
+
+
+def expand_stream(arr: torch.Tensor, tk: torch.Tensor, ta: torch.Tensor,
+                  tb: torch.Tensor, tp: int, total: int) -> torch.Tensor:
+    """A whole stream's tokens (the first tp of tk, ta, tb int32[K]) ->
+    uint8 bytes, at least total of them: one row of a power of two up to
+    SEG + 256 bytes, else segments (``expand_segments``)."""
+    if total > SEG + 256:
+        return expand_segments(arr, tk[:tp], ta[:tp], tb[:tp], total)
     live = max(tp, 1)  # the expanders index a row of at least one slot
-    if total <= SEG + 256:
-        out, _ = expand(arr, tk[:live], ta[:live], tb[:live], tp,
-                        max(1 << 12, pow2_at_least(total)))
-    else:
-        out = expand_segments(arr, tk[:tp], ta[:tp], tb[:tp], total)
-    return out.cpu().numpy(), total, pos
+    out, _ = expand(arr, tk[:live], ta[:live], tb[:live], tp,
+                    max(1 << 12, pow2_at_least(total)))
+    return out
