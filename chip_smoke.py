@@ -125,10 +125,30 @@ Phases, each of which raises on failure:
                (its body the pinned DEFAULT stream's), gzip members with
                FNAME, FCOMMENT, FEXTRA and FHCRC, and a member that falls
                back (a 1-bit literal code)
+  10. full window — three counted runs of the 8 MiB through
+               compress_indexed and decompress_indexed with window 32768,
+               max_match 258 and the lazy parse: FULL_WINDOW (the exact
+               far matcher, dynamic trees, 64 KiB chunks), bench.py's
+               speed configuration (the fast far matcher, static trees)
+               and its best-ratio one (exact, dynamic, 256 KiB chunks,
+               whose rows take expand_fused2).  Each stream must equal
+               the JAX package's, pinned below, zlib must read it and the
+               decode must return the input; the first call of each
+               kernel is held against its plain version; the ratio
+               against zlib -6 and the encode's GB/s by CUDA events and
+               by the profiler, split into the far matcher's glue (its
+               own profiled run), the bit-pack and the rest, are logged.
+               FULL_WINDOW's stream also decodes through decompress (the
+               device-paced decode).  Outside the counts: run_selftest on
+               the card, the CLI at levels fast, ref and max (zlib, gzip,
+               -d; python -m tpu_deflate_torch in a process of its own)
+               on 1 MiB, checked by zlib and gzip, Profiler around a
+               FULL_WINDOW compress and decompress, and device_trace
+               around the compress
 Phase 3 also checks the dynamic path's two kernels on its 128 lanes.
 Every launch count is set to 0 just before each counted run (phases 4 and
-6, the two of 7, the three of 7b, 8, and the four of 9) and read just
-after it.  The
+6, the two of 7, the three of 7b, 8, the four of 9 and the three of 10)
+and read just after it.  The
 line before the last is {"kernels": [...]}: "launches_by_path" holds each
 kernel's count in each of those runs and "launches" the count on the path
 that brought the kernel in (OWN_PATH); the last line is {"ok": true,
@@ -142,6 +162,7 @@ import hashlib
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -164,6 +185,15 @@ PIN_GZIP_MEMBERS = (4872694,
                     "a9953cb5ad6fc76ce0b76a59dd51b8a2ed2212d965a74d0c1391d2357779ed64")
 PIN_STREAM = (4869681,
               "a398e34cf515c19af63f6b5fe883d63a6d14788119a56776f64422851fead78d")
+# and its compress_indexed with FULL_WINDOW, with bench.py's speed
+# configuration of the full window (the fast far matcher, static trees) and
+# with its best-ratio one (256 KiB chunks), encoded 8 and 2 lanes at a time
+PIN_FULL_WINDOW = (2002794,
+                   "a108ed0d08828fb7b21d609b6738d862db4412d18c83890aa6bd12635515154d")
+PIN_FULL_FAST = (2572496,
+                 "99c0f54c2c6cd409043a5be5f9d756d4ff3a63ab0a77105464b0f52bed567be9")
+PIN_BEST_RATIO = (1885997,
+                  "cc7dd505f4ef1b4c2becf96780e3960cb8e4bd66a2934d6ec7571d0cd79882af")
 
 
 # NVIDIA's data sheet for the H100 SXM: device memory rate, and the float32
@@ -563,6 +593,7 @@ def main() -> None:
     sys.path.insert(0, REPO)
     from tpu_deflate_torch import (
         DEFAULT,
+        FULL_WINDOW,
         DeflateConfig,
         DeflateError,
         StreamCompressor,
@@ -576,6 +607,7 @@ def main() -> None:
         decompress_indexed,
     )
     from tpu_deflate_torch import api as A
+    from tpu_deflate_torch.cli import main as cli_main
     from tpu_deflate_torch.kernels import build
     from tpu_deflate_torch.kernels import tokenize_dyn as KD
     from tpu_deflate_torch.kernels.chase1 import (
@@ -616,6 +648,8 @@ def main() -> None:
     from tpu_deflate_torch.ops import expand as X
     from tpu_deflate_torch.ops import foreign as F
     from tpu_deflate_torch.ops import header as H
+    from tpu_deflate_torch.selftest import run_selftest
+    from tpu_deflate_torch.utils.profiling import Profiler, device_trace
 
     # ---- 1. device ------------------------------------------------------
     smi = subprocess.run(
@@ -1916,6 +1950,112 @@ def main() -> None:
     log(f"decompress_gzip: members with FNAME, FCOMMENT, FEXTRA and FHCRC, and a "
         f"member with a 1-bit literal code (FALLBACK) before another, equal to "
         f"gzip; phase 9 took {time.perf_counter() - t9:.1f} s (host clock)")
+
+    # ---- 10. full window ------------------------------------------------
+    t10 = time.perf_counter()
+    fw_runs = (
+        ("full_window", FULL_WINDOW, PIN_FULL_WINDOW,
+         ("mono_scatter_add", "mono_compact", "tokenize_dyn_batch", "expand_fused3")),
+        ("full_fast", DeflateConfig(window=32768, max_match=258, lazy=True,
+                                    chunk_size=1 << 16, far_matcher="fast"),
+         PIN_FULL_FAST, ("mono_scatter_add", "tokenize_static_batch", "expand_fused3")),
+        ("best_ratio", DeflateConfig(window=32768, max_match=258, lazy=True,
+                                     dynamic_encode=True, chunk_size=1 << 18),
+         PIN_BEST_RATIO,
+         ("mono_scatter_add", "mono_compact", "tokenize_dyn_batch", "expand_fused2")),
+    )
+    for path_name, fcfg, pin, must in fw_runs:
+        (fstream, findex, fback, enc_s, dec_s), counts, held = checked(
+            path_name, lambda: round_trip(fcfg), must)
+        require(fback == data, f"{path_name}: decompress_indexed did not return the input")
+        require(zlib.decompress(fstream) == data, f"zlib rejects the {path_name} stream")
+        require_pinned(fstream, pin, path_name)
+        if path_name == "full_window":
+            back, fw_dec_s = host_s(lambda: decompress(fstream, device=dev))
+            require(back == data, "decompress of the full-window stream differs")
+            log(f"full_window: decompress without the index (device-paced) "
+                f"{fw_dec_s:.4f} s (host clock, first call)")
+        C = fcfg.chunk_size
+        fchunks = chunks.reshape(SIZE // C, C)
+        flens = torch.full((SIZE // C,), C, dtype=torch.int32, device=dev)
+        ffinals = torch.zeros(SIZE // C, dtype=torch.bool, device=dev)
+        ffinals[-1] = True
+
+        def encode():
+            return E.encode_blocks_batch(fchunks, flens, ffinals, fcfg)
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        encode()
+        peak = torch.cuda.max_memory_allocated() - base
+        ev_ms = cuda_ms(encode, 3)
+        split = device_split(encode, 3)
+        msplit = device_split(lambda: E._match(fchunks, flens, fcfg), 3)
+        matcher_ms = sum(msplit.values())
+        top = sorted(msplit.items(), key=lambda kv: -kv[1])[:4]
+        pack_ms = sum(v for k, v in split.items() if "mono_scatter" in k)
+        dev_total = sum(split.values())
+        log(f"{path_name}: {len(data)} B -> {len(fstream)} B in {len(findex)} "
+            f"chunks of {C} B, ratio {len(fstream) / len(data):.4f}, "
+            f"{len(fstream) / len(zs6):.4f}x zlib -6's {len(zs6)} B; zlib "
+            f"verified, equal to the JAX package's; {held} kernel calls equal "
+            f"to plain; launches {counts}; compress_indexed {enc_s:.4f} s, "
+            f"decompress_indexed {dec_s:.4f} s (host clock, first call); "
+            f"encode_blocks_batch {ev_ms:.3f} ms = {SIZE / ev_ms / 1e6:.4f} GB/s "
+            f"by CUDA events, {dev_total:.3f} ms = {SIZE / dev_total / 1e6:.4f} "
+            f"GB/s device time by the profiler: the matcher's glue "
+            f"{matcher_ms:.3f} ms (its own run, {len(msplit)} kinds of launch, "
+            f"led by " + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top) + "), "
+            f"the bit-pack {pack_ms:.4f} ms, "
+            f"the rest {dev_total - matcher_ms - pack_ms:.3f} ms, in {len(split)} "
+            f"kinds of launch; peak device memory of one encode {peak / 2**30:.2f} "
+            f"GiB above the {base / 2**30:.2f} GiB held before it, on {name}, {smi}")
+
+    # outside the counts: the self-test, the CLI, the profiler
+    require(run_selftest(device=dev), "run_selftest failed on the card")
+    work = os.path.join(REPO, "build", "phase10")
+    os.makedirs(work, exist_ok=True)
+    src = os.path.join(work, "in.bin")
+    with open(src, "wb") as f:
+        f.write(data[: 1 << 20])
+    for level in ("fast", "ref", "max"):
+        for gz in (False, True):
+            packed = src + (".gz" if gz else ".zz")
+            require(cli_main([src, "--level", level] + ["--gzip"] * gz) == 0,
+                    f"the CLI failed at {level}")
+            with open(packed, "rb") as f:
+                comp = f.read()
+            require((gzip.decompress(comp) if gz else zlib.decompress(comp))
+                    == data[: 1 << 20], f"the CLI's {level} stream differs")
+        back = os.path.join(work, "back.bin")
+        require(cli_main([src + ".zz", "-d", "-o", back, "--level", level]) == 0,
+                f"the CLI failed to decompress at {level}")
+        with open(back, "rb") as f:
+            require(f.read() == data[: 1 << 20], f"the CLI's {level} round trip differs")
+    # the module as a user runs it, in a process of its own
+    for argv in ([src, "-o", src + ".m.zz"], [src + ".m.zz", "-d", "-o", src + ".m"]):
+        subprocess.run([sys.executable, "-m", "tpu_deflate_torch", *argv],
+                       cwd=REPO, check=True, timeout=300)
+    with open(src + ".m", "rb") as f:
+        require(f.read() == data[: 1 << 20], "python -m tpu_deflate_torch differs")
+    prof = Profiler(device=dev)
+    trace_dir = os.path.join(work, "trace")
+    with device_trace(trace_dir, device=dev):
+        with prof.stage("compress_full_window", nbytes=SIZE):
+            fw = compress(data, FULL_WINDOW, device=dev)
+    with prof.stage("decompress_full_window", nbytes=SIZE):
+        require(decompress(fw, device=dev) == data, "decompress of compress's stream")
+    report = json.loads(prof.report())
+    traces = [p for p in os.listdir(trace_dir) if p.endswith(".json")]
+    require([sorted(r) for r in report] == [["GB/s", "bytes", "calls", "name", "seconds"]] * 2
+            and len(traces) == 1, f"profiler report {report}, traces {traces}")
+    log(f"run_selftest passed on the card; the CLI at fast, ref and max "
+        f"(zlib, gzip and -d, and python -m tpu_deflate_torch at max) on 1 MiB "
+        f"verified by zlib and gzip; Profiler (CUDA events) {prof.report()}; "
+        f"device_trace wrote {traces[0]} ({os.path.getsize(os.path.join(trace_dir, traces[0]))} B); "
+        f"phase 10 took {time.perf_counter() - t10:.1f} s (host clock)")
+    shutil.rmtree(work)
 
     for r in results:
         r["launches"] = r["launches_by_path"][OWN_PATH[r["name"]]]

@@ -164,14 +164,24 @@ def test_dynamic_encode_blocks_batch_equal(chunk):
     assert {0, 2} <= btypes  # stored and dynamic lanes
 
 
-def test_dynamic_config_raises_only_where_unported():
-    data = torch.zeros(1, 4096, dtype=torch.uint8)
-    lens = torch.tensor([4096], dtype=torch.int32)
-    f = torch.tensor([True])
-    for fields in ({"window": 32768}, {"lazy": True}):
-        with pytest.raises(NotImplementedError):
-            E.encode_blocks_batch(data, lens, f, td.DeflateConfig(**{**FIELDS, **fields}))
-    out, out_lens, _ = E.encode_blocks_batch(data, lens, f, TCFG)
+@pytest.mark.parametrize("extra", [{"window": 32768}, {"lazy": True}])
+def test_dynamic_config_raises_only_where_unported(extra):
+    """The dynamic options the port once refused (the full window, the
+    lazy parse) now encode as the JAX package's, lanes and all; zeros
+    still encode with TCFG."""
+    data, lens, finals = _encode_lanes(CH)
+    cfg = {**FIELDS, **extra}
+    out, out_lens, ntok = E.encode_blocks_batch(
+        t(data), t(lens), t(finals), td.DeflateConfig(**cfg))
+    jout, jlens, jntok = JE.encode_blocks_batch(
+        jnp.asarray(data), jnp.asarray(lens), jnp.asarray(finals),
+        tj.DeflateConfig(**cfg))
+    np.testing.assert_array_equal(out_lens.numpy(), n(jlens))
+    np.testing.assert_array_equal(ntok.numpy(), n(jntok))
+    np.testing.assert_array_equal(out.numpy(), n(jout))
+    zeros = torch.zeros(1, 4096, dtype=torch.uint8)
+    out, out_lens, _ = E.encode_blocks_batch(
+        zeros, torch.tensor([4096], dtype=torch.int32), torch.tensor([True]), TCFG)
     assert zlib.decompress(out[0, : out_lens[0]].numpy().tobytes(), -15) == bytes(4096)
 
 

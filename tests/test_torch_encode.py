@@ -70,14 +70,21 @@ def test_encode_blocks_batch_equal(chunk, window, max_match):
     assert lens[8] == chunk + 5  # the random tail forces the stored form
 
 
-def test_unported_encoder_options_raise():
-    data = torch.zeros(1, 4096, dtype=torch.uint8)
-    n = torch.tensor([4096], dtype=torch.int32)
-    f = torch.tensor([True])
-    for fields in ({"window": 32768}, {"lazy": True}):
-        cfg = TConfig(**{**dataclasses.asdict(TConfig()), **fields})
-        with pytest.raises(NotImplementedError):
-            encode_blocks_batch(data, n, f, cfg)
+@pytest.mark.parametrize("extra", [{"window": 32768}, {"lazy": True}])
+def test_unported_encoder_options_raise(extra):
+    """The options the port once refused with NotImplementedError (the
+    full window, the lazy parse) now give the JAX package's bytes,
+    lengths and token counts on every lane."""
+    fields = {**dataclasses.asdict(TConfig()), "chunk_size": 4096, **extra}
+    data, n, finals = _lanes(4096)
+    out, lens, ntok = encode_blocks_batch(
+        torch.from_numpy(data), torch.from_numpy(n), torch.from_numpy(finals),
+        TConfig(**fields))
+    jout, jlens, jntok = j_encode(
+        jnp.asarray(data), jnp.asarray(n), jnp.asarray(finals), JConfig(**fields))
+    np.testing.assert_array_equal(lens.numpy(), np.asarray(jlens))
+    np.testing.assert_array_equal(ntok.numpy(), np.asarray(jntok))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
 
 
 CORPUS = pathlib.Path(__file__).resolve().parent / "data" / "corpus.bin.gz"

@@ -144,14 +144,18 @@ def test_adler32_fold_matches_zlib():
 
 
 def test_import_leaves_jax_out():
-    """Importing every module, then decompress_gzip and a
-    StreamDecompressor on the CPU, bring in neither jax nor tpu_deflate."""
+    """Importing every module, then decompress_gzip, a StreamDecompressor,
+    a FULL_WINDOW compress and the self-test on the CPU, bring in neither
+    jax nor tpu_deflate."""
     code = ("import gzip, sys, zlib, tpu_deflate_torch as td; "
             "import tpu_deflate_torch.kernels.expand2, "
             "tpu_deflate_torch.kernels.resolve, tpu_deflate_torch.ops.expand, "
             "tpu_deflate_torch.ops.foreign, tpu_deflate_torch.kernels.chase1, "
             "tpu_deflate_torch.kernels.tokenize_dyn, tpu_deflate_torch.ops.header, "
-            "tpu_deflate_torch.lanes; "
+            "tpu_deflate_torch.lanes, tpu_deflate_torch.cli, "
+            "tpu_deflate_torch.ref.deflate, tpu_deflate_torch.spec.bitstream, "
+            "tpu_deflate_torch.utils.profiling; "
+            "from tpu_deflate_torch.selftest import run_selftest; "
             "data = b'gzip and streaming, ' * 300; "
             "cfg = td.DeflateConfig(chunk_size=4096); "
             "g = td.compress_gzip_members(data, cfg, device='cpu'); "
@@ -161,6 +165,9 @@ def test_import_leaves_jax_out():
             "d = td.StreamDecompressor(cfg, device='cpu'); "
             "out = b''.join(d.decompress(z[i : i + 40]) for i in range(0, len(z), 40)); "
             "assert out + d.flush() == data; "
+            "fw = td.DeflateConfig(**{**td.FULL_WINDOW.__dict__, 'chunk_size': 4096}); "
+            "assert zlib.decompress(td.compress(data, fw, device='cpu')) == data; "
+            "assert run_selftest(verbose=False, device='cpu'); "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'tpu_deflate' not in sys.modules, 'tpu_deflate imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)

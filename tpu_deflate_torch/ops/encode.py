@@ -1,9 +1,17 @@
-"""Block encoder for chunk lanes, static or dynamic Huffman trees, window
-<= 256.
+"""Block encoder for chunk lanes, static or dynamic Huffman trees, any
+window up to 32768.
 
 Four stages per lane, all lanes at once:
 
-  1+2. match search and extension — the ``match2`` kernel;
+  1+2. match search and extension.  Windows <= 256 take the ``match2``
+       kernel: every position's nearest 3-byte match, extended.  Larger
+       windows take a far matcher built on stable sorts: the most recent
+       occurrences of each position's 3-byte key (a chain of them) and of
+       hashed longer keys are candidates, each probed, the winner
+       extended (``far_matcher="exact"``) or stitched from runs of
+       positions that verified 8 bytes at one distance (``"fast"``).
+       With ``lazy`` a match is dropped where the next position holds a
+       strictly longer one;
   3.   greedy parse: the token starts are the positions reachable from 0
        under next[i] = i + max(length[i], 1) (``ops.header.chase_reach``);
   4.   emissions: each token's code plus extra bits as values and bit
@@ -48,6 +56,206 @@ def _greedy_parse(length: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     step = torch.where(length >= 3, length, 1)
     reach = chase_reach(step, torch.zeros_like(step, dtype=torch.bool))
     return reach & (torch.arange(N, device=length.device) < n[:, None])
+
+
+# --- far matchers (window > 256): [B, N] lanes, int64 throughout ---------
+
+
+def _ahead(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x[:, i + k], zero past the lane's end."""
+    if k == 0:
+        return x
+    return torch.cat([x[:, k:], x.new_zeros(x.shape[0], min(k, x.shape[1]))], 1)
+
+
+def _prev_occurrence(key: torch.Tensor) -> torch.Tensor:
+    """prev[b, i] = the largest j < i with key[b, j] == key[b, i], else -1.
+    A stable sort places every position right after the previous
+    occurrence of its key."""
+    sk, order = torch.sort(key, dim=1, stable=True)
+    prev_pos = torch.nn.functional.pad(order[:, :-1], (1, 0), value=-1)
+    same = torch.nn.functional.pad(sk[:, 1:] == sk[:, :-1], (1, 0))
+    cand = torch.where(same, prev_pos, -1)
+    return torch.full_like(key, -1).scatter(1, order, cand)
+
+
+_HASH_MUL = 0x9E3779B1
+
+
+def _key_hash(b: torch.Tensor, n: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """Multiplicative hash of b[i .. i + nbytes - 1] in uint32 arithmetic,
+    kept to its low 31 bits; -(i + 2) where the key crosses n, so those
+    never match."""
+    idx = torch.arange(b.shape[1], device=b.device)
+    lo, hi = _HASH_MUL & 0xFFFF, _HASH_MUL >> 16
+    acc = torch.zeros_like(b)
+    for k in range(nbytes):
+        # acc * _HASH_MUL mod 2^32 from two products below 2^48
+        acc = acc * lo + (((acc * hi) & 0xFFFF) << 16) + _ahead(b, k)
+        acc = acc & 0xFFFFFFFF
+    acc = (acc ^ (acc >> 15)) & 0x7FFFFFFF
+    return torch.where(idx + nbytes <= n, acc, -(idx + 2))
+
+
+def _words(b: torch.Tensor) -> torch.Tensor:
+    """The 4 bytes at each position packed little-endian, zero past the
+    lane's end."""
+    return b | (_ahead(b, 1) << 8) | (_ahead(b, 2) << 16) | (_ahead(b, 3) << 24)
+
+
+def _extend_words(b, b4, dist, active, n, start: int, max_match: int):
+    """Match lengths from ``start`` on at distances dist for the active
+    positions (garbage elsewhere): 4 bytes a step by word compares, then
+    up to 3 single bytes, bounded by max_match and n."""
+    N = b.shape[1]
+    idx = torch.arange(N, device=b.device)
+    b4pad = torch.nn.functional.pad(b4, (0, max_match + 8))
+    L = torch.full_like(b, start)
+    al = active
+    for k in range(start, max_match - 3, 4):
+        # a position still alive at this step has L = k, so the target
+        # side is a fixed shift
+        src = (idx - dist + k).clamp(0, N - 1)
+        al = al & (idx + k + 4 <= n) & (torch.gather(b4, 1, src) == b4pad[:, k : k + N])
+        L = torch.where(al, L + 4, L)
+    al = active
+    for _ in range(3):
+        src = (idx - dist + L).clamp(0, N - 1)
+        tgt = (idx + L).clamp(0, N - 1)
+        al = (al & (L < max_match) & (idx + L < n)
+              & (torch.gather(b, 1, src) == torch.gather(b, 1, tgt)))
+        L = torch.where(al, L + 1, L)
+    return L
+
+
+def _chain(key3: torch.Tensor, depth: int) -> list:
+    """The ``depth`` most recent previous occurrences of each position's
+    3-byte key, nearest first (-1 where there are fewer)."""
+    N = key3.shape[1]
+    prev3 = _prev_occurrence(key3)
+    cands, c = [], prev3
+    for _ in range(depth):
+        cands.append(c)
+        c = torch.where(c >= 0, torch.gather(prev3, 1, c.clamp(0, N - 1)), -1)
+    return cands
+
+
+def _match_candidates_multi(b, key3, n, window: int, max_match: int, depth: int = 4):
+    """``far_matcher="exact"``: candidates are the ``depth`` most recent
+    occurrences of the exact 3-byte key and the most recent ones of hashed
+    6- and 10-byte keys; each is probed to 16 bytes, nearer distances
+    winning ties, and the winner is extended to max_match.  Returns
+    (dist, length) int64[B, N]."""
+    N = b.shape[1]
+    idx = torch.arange(N, device=b.device)
+    probe = min(16, max_match)
+    cands = _chain(key3, depth)
+    cands += [_prev_occurrence(_key_hash(b, n, 6)),
+              _prev_occurrence(_key_hash(b, n, 10))]
+    b4 = _words(b)
+    best_len = torch.zeros_like(b)
+    best_dist = torch.zeros_like(b)
+    for c in cands:
+        d = idx - c
+        # the exact 3-byte seed through the key itself: hashed keys may
+        # collide, and key3's sentinels past n are unique
+        valid = ((c >= 0) & (d >= 1) & (d <= window)
+                 & (torch.gather(key3, 1, c.clamp(0, N - 1)) == key3))
+        ln = torch.where(valid, _extend_words(b, b4, d, valid, n, 3, probe), 0)
+        better = (ln > best_len) | ((ln == best_len) & (ln > 0) & (d < best_dist))
+        best_len = torch.where(better, ln, best_len)
+        best_dist = torch.where(better, d, best_dist)
+    if max_match > probe:  # the winner alone extends past the probe
+        at_cap = best_len == probe
+        ext = _extend_words(b, b4, best_dist, at_cap, n, probe, max_match)
+        best_len = torch.where(at_cap, ext, best_len)
+    return best_dist, torch.minimum(best_len, (n - idx).clamp_min(0))
+
+
+def _match_candidates_fast(b, key3, n, window: int, max_match: int, depth: int = 2):
+    """``far_matcher="fast"``: candidates are the ``depth`` most recent
+    occurrences of the 3-byte key and the most recent ones of hashed 7-
+    and 12-byte keys, each probed to 8 bytes by two word compares; three
+    sweeps then try the distances that the positions 1, 2 and 1 before
+    verified to 8 bytes.  A run of positions i..i+k that all verified 8
+    bytes at one distance is one match of length k + 8 at i (capped at
+    max_match), so no byte loop extends past 8.  Returns (dist, length)
+    int64[B, N]."""
+    N = b.shape[1]
+    idx = torch.arange(N, device=b.device)
+    cands = _chain(key3, depth)
+    cands += [_prev_occurrence(_key_hash(b, n, 7)),
+              _prev_occurrence(_key_hash(b, n, 12))]
+    b4 = _words(b)
+    b4n = _ahead(b4, 4)
+    lim = idx.clamp(max=window)
+
+    def consider(best_len, best_dist, d, extra_valid, prefer_tie=False):
+        cc = (idx - d).clamp(0, N - 1)
+        valid = ((d >= 1) & (d <= lim) & (idx + 3 <= n) & extra_valid
+                 & (torch.gather(key3, 1, cc) == key3))
+        cw1 = torch.gather(b4n, 1, cc)
+        m4 = valid & (torch.gather(b4, 1, cc) == b4)
+        ok8 = m4 & (cw1 == b4n)
+        ln = torch.where(m4, 4, torch.where(valid, 3, 0))
+        for kk in range(3):  # bytes 4..6 one by one from the second word
+            same = ((cw1 >> (8 * kk)) & 0xFF) == ((b4n >> (8 * kk)) & 0xFF)
+            ln = torch.where(m4 & ~ok8 & (ln == 4 + kk) & same, ln + 1, ln)
+        ln = torch.where(ok8, 8, ln)
+        tie = True if prefer_tie else d < best_dist
+        better = (ln > best_len) | ((ln == best_len) & (ln > 0) & tie)
+        return torch.where(better, ln, best_len), torch.where(better, d, best_dist)
+
+    best_len = torch.zeros_like(b)
+    best_dist = torch.zeros_like(b)
+    for c in cands:
+        best_len, best_dist = consider(best_len, best_dist, idx - c, c >= 0)
+    # a long repeat's 3-byte chain seldom picks one occurrence at every
+    # position; adopting the distance a position 1 or 2 before verified
+    # joins the pieces of its diagonal run (run continuity beats a nearer
+    # distance)
+    for shift in (1, 2, 1):
+        d_prev = torch.nn.functional.pad(best_dist[:, :-shift], (shift, 0))
+        l_prev = torch.nn.functional.pad(best_len[:, :-shift], (shift, 0))
+        best_len, best_dist = consider(
+            best_len, best_dist, d_prev, (l_prev >= 8) & (d_prev != best_dist),
+            prefer_tie=True)
+    # a run's end by a reversed running minimum of the positions where a
+    # run of 8-byte matches at one distance breaks
+    at8 = best_len == 8
+    nxt_same = at8 & torch.nn.functional.pad(
+        at8[:, 1:] & (best_dist[:, 1:] == best_dist[:, :-1]), (0, 1))
+    brk = torch.where(at8 & ~nxt_same, idx, N)
+    run_end = torch.cummin(brk.flip(1), dim=1).values.flip(1)
+    best_len = torch.where(at8, (run_end - idx + 8).clamp(max=max_match), best_len)
+    return best_dist, torch.minimum(best_len, (n - idx).clamp_min(0))
+
+
+def _key3(b: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """The 3 bytes at each position as one key; a 3-byte window that
+    crosses n gets a key of its own, (1 << 24) + i, so it never matches."""
+    idx = torch.arange(b.shape[1], device=b.device)
+    key3 = b | (_ahead(b, 1) << 8) | (_ahead(b, 2) << 16)
+    return torch.where(idx + 3 <= n, key3, (1 << 24) + idx)
+
+
+def _match(data: torch.Tensor, n: torch.Tensor, config: DeflateConfig):
+    """Stages 1+2 with the lazy deferral: (dist, length) [B, N] of lanes
+    data uint8[B, N] of lengths n int32[B]."""
+    if config.window <= MAX_WINDOW:
+        dist, length = match_bitplane_batch(data, n, config.window, config.max_match)
+    else:
+        b = data.to(torch.int64)
+        n64 = n.to(torch.int64)[:, None]
+        far = (_match_candidates_fast if config.far_matcher == "fast"
+               else _match_candidates_multi)
+        dist, length = far(b, _key3(b, n64), n64, config.window, config.max_match)
+    if config.lazy:
+        # one-step lazy matching: a literal here where the next position
+        # holds a strictly longer match
+        defer = (length >= 3) & (_ahead(length, 1) > length)
+        length = torch.where(defer, 0, length)
+    return dist, length
 
 
 def _pow2(e: torch.Tensor) -> torch.Tensor:
@@ -365,7 +573,9 @@ def _emission_bits(config: DeflateConfig) -> int:
     """Widest emission value of the config, in bits."""
     if config.dynamic_encode:
         return 28  # 15-bit distance code + 13 extra bits
-    return 20 if config.max_match <= 18 else 31
+    # static: a length code of <= 8 bits with 1 extra bit and a distance
+    # of <= 256 (<= 6 extra bits) fit in 20; else 13 + 18 bits
+    return 20 if config.window <= 256 and config.max_match <= 18 else 31
 
 
 def _bitpack_entries(vals, nbs, offs, emax: int):
@@ -435,16 +645,10 @@ def encode_blocks_batch(data: torch.Tensor, lengths: torch.Tensor,
     sets BFINAL.  Returns (out uint8[B, M], out_lens int32[B], ntok
     int32[B]) with M = max_output_bytes(N).  ``config.dynamic_encode``
     gives each lane dynamic trees where they are smaller."""
-    if config.window > MAX_WINDOW or config.lazy:
-        raise NotImplementedError(
-            "the port encodes window <= 256 with the greedy parse only"
-        )
     B, N = data.shape
     M = max_output_bytes(N)
     lengths = lengths.to(torch.int32)
-    dist, length = match_bitplane_batch(
-        data, lengths, config.window, config.max_match
-    )
+    dist, length = _match(data, lengths, config)
     vals, nbs, offs, total_bits, ntok = _encode_emissions(
         data, lengths, finals, dist, length, config.dynamic_encode
     )

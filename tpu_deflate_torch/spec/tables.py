@@ -45,6 +45,7 @@ for _i in range(29):
     DIST_BASE[_i + 1] = DIST_BASE[_i] + (1 << DIST_EXTRA_BITS[_i])
 
 MAX_MATCH = 258
+MIN_MATCH = 3
 MAX_DISTANCE = 32768
 
 # Inverse maps: raw length (3..258) / distance (1..32768) -> symbol index
