@@ -145,10 +145,33 @@ Phases, each of which raises on failure:
                on 1 MiB, checked by zlib and gzip, Profiler around a
                FULL_WINDOW compress and decompress, and device_trace
                around the compress
+  11. sharding — one rank a visible card, each a process of its own
+               (this script with --shard-rank), joined by NCCL through
+               the JAX package's launch variables on a free port and
+               joined back with a time limit (a rank that fails fails the
+               phase with its exit code and stderr).  Each rank takes its
+               chunks of the 8 MiB (host_shard_bounds, make_global_batch)
+               through encode_sharded and assemble_ragged, the bodies are
+               gathered, and decode_sharded must return its input with no
+               error; rank 0 checks the stream with zlib, against
+               PIN_STATIC (DEFAULT), PIN_DYNAMIC (dynamic trees) and, at
+               1 MiB chunks (rows taken by expand_fused2), against
+               compress's stream.  Three counted runs a rank, the first
+               call of each kernel held against its plain version; the
+               host-clock median and spread of 3 and the encode's and the
+               decode's device time by the profiler are logged.  In this
+               process: a mesh that lists the card four times gives the
+               DEFAULT stream again and decodes it (a counted run), every
+               Huffman lane 3 bits into its byte decodes as at bit 0
+               (outside the counts), and dryrun_multichip over every card
+               (a counted run).  With one card the collective spans one
+               rank: the exchange across ranks is checked by
+               tests/test_torch_multihost.py's two gloo processes
 Phase 3 also checks the dynamic path's two kernels on its 128 lanes.
 Every launch count is set to 0 just before each counted run (phases 4 and
-6, the two of 7, the three of 7b, 8, the four of 9 and the three of 10)
-and read just after it.  The
+6, the two of 7, the three of 7b, 8, the four of 9, the three of 10 and
+the five of 11, whose rank runs sum over the ranks) and read just after
+it.  The
 line before the last is {"kernels": [...]}: "launches_by_path" holds each
 kernel's count in each of those runs and "launches" the count on the path
 that brought the kernel in (OWN_PATH); the last line is {"ok": true,
@@ -163,6 +186,7 @@ import itertools
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -584,6 +608,238 @@ def capture_first(module, name: str, calls: list, keep: int):
 
     setattr(module, name, wrapper)
     return fn
+
+
+# phase 11's runs in each rank: (path, config fields, pinned stream or None
+# for the single-process compress's, kernels that must launch)
+SHARD_RUNS = (
+    ("sharded_static", {}, PIN_STATIC,
+     ("match_bitplane_batch", "mono_scatter_add", "tokenize_static_batch",
+      "expand_fused3")),
+    ("sharded_dynamic", {"dynamic_encode": True}, PIN_DYNAMIC,
+     ("match_bitplane_batch", "mono_scatter_add", "mono_compact",
+      "tokenize_dyn_batch", "expand_fused3")),
+    ("sharded_long", {"chunk_size": 1 << 20}, None,
+     ("match_bitplane_batch", "mono_scatter_add", "tokenize_static_batch",
+      "expand_fused2")),
+)
+
+
+def padded(stream: bytes):
+    """The stream zero-padded to a power of two, as a numpy array."""
+    import numpy as np
+
+    buf = np.zeros(1 << max(len(stream), 2).bit_length(), np.uint8)
+    buf[: len(stream)] = np.frombuffer(stream, np.uint8)
+    return buf
+
+
+def kernel_sites() -> list:
+    """(call site's module, name, wrapper, plain version) of every kernel:
+    the wrapper carries the launch count, and the port's paths look the
+    kernel up in the call site's module, where a capture sees each call."""
+    from tpu_deflate_torch.kernels import chase1, expand2, expand3, match2
+    from tpu_deflate_torch.kernels import monotone, resolve, tokenize, tokenize_dyn
+    from tpu_deflate_torch.ops import decode as D
+    from tpu_deflate_torch.ops import encode as E
+    from tpu_deflate_torch.ops import expand as X
+    from tpu_deflate_torch.ops import foreign as F
+    from tpu_deflate_torch.ops import header as H
+
+    return [
+        (E, "match_bitplane_batch", match2.match_bitplane_batch,
+         match2.match_bitplane_plain),
+        (E, "mono_scatter_add", monotone.mono_scatter_add,
+         monotone.mono_scatter_add_plain),
+        (H, "mono_compact", monotone.mono_compact, monotone.mono_compact_plain),
+        (D, "tokenize_static_batch", tokenize.tokenize_static_batch,
+         tokenize.tokenize_static_plain),
+        (D, "tokenize_dyn_batch", tokenize_dyn.tokenize_dyn_batch,
+         tokenize_dyn.tokenize_dyn_plain),
+        (X, "expand_fused3", expand3.expand_fused3, expand3.expand_fused3_plain),
+        (X, "resolve_roots", resolve.resolve_roots,
+         lambda p, v: resolve.resolve_roots_plain(p.long(), v.long())),
+        (X, "expand_fused2", expand2.expand_fused2, expand2.expand_fused2_plain),
+        (tokenize_dyn, "ent_from_phi", chase1.ent_from_phi, chase1.ent_from_phi_plain),
+        (F, "visited_from_adv", chase1.visited_from_adv,
+         chase1.visited_from_adv_plain),
+        (F, "tokenize_dyn_hier", tokenize_dyn.tokenize_dyn_hier,
+         tokenize_dyn.tokenize_dyn_hier_plain),
+    ]
+
+
+def held_run(path: str, drive, must, keep: int = 1):
+    """A counted run: every kernel's count set to 0 just before drive()
+    and read just after, the kernels in must required to have launched;
+    the first ``keep`` calls of each kernel captured at its call site
+    (arguments cloned as passed) and, outside the count, held against its
+    plain version.  Returns (drive's result, counts, calls held, host
+    seconds of drive)."""
+    sites = kernel_sites()
+    seen = {f: [] for _, f, _, _ in sites}
+    originals = [capture_first(m, f, seen[f], keep) for m, f, _, _ in sites]
+    for _, _, fn, _ in sites:
+        fn.launches = 0
+    try:
+        t = time.perf_counter()
+        out = drive()
+        host = time.perf_counter() - t
+    finally:
+        for (m, f, _, _), fn in zip(sites, originals):
+            setattr(m, f, fn)
+    counts = {f: fn.launches for _, f, fn, _ in sites}
+    for kname in must:
+        require(counts[kname] > 0, f"{kname} never launched on the {path} "
+                f"path; counts {counts}")
+    held = 0
+    for (_, f, _, plain), fn in zip(sites, originals):
+        for args, kw in seen[f]:
+            got = fn(*clone(args), **clone(kw))
+            want = plain(*clone(args), **clone(kw))
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max_abs_err(got, want)
+            require(err == 0, f"{f} differs from its plain version on the "
+                    f"{path} run by {err}")
+            held += 1
+    return out, counts, held, host
+
+
+def shard_rank(rank: int, world: int, port: int, report_path: str) -> None:
+    """One rank of phase 11, in a process of its own: join the NCCL group
+    through the JAX package's launch variables, then for each of
+    SHARD_RUNS materialize this rank's chunks of the 8 MiB
+    (host_shard_bounds, make_global_batch), encode them (encode_sharded,
+    assemble_ragged), gather the bodies, decode this rank's lanes
+    (decode_sharded) and check them against the input; rank 0 checks the
+    stream with zlib and against its pin.  Writes counts, calls held and
+    times to report_path as JSON."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update(COORDINATOR_ADDRESS=f"localhost:{port}",
+                      NUM_PROCESSES=str(world), PROCESS_ID=str(rank))
+    sys.path.insert(0, REPO)
+    from tpu_deflate_torch import DeflateConfig, compress
+    from tpu_deflate_torch.parallel import multihost as MH
+    from tpu_deflate_torch.parallel.shard import (
+        assemble_ragged,
+        decode_sharded,
+        encode_sharded,
+    )
+
+    require(MH.initialize(), "initialize did not join the process group")
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == world
+            and dist.get_rank() == rank, f"group {dist.get_backend()}, "
+            f"{dist.get_world_size()} ranks")
+    mesh = MH.global_mesh()
+    dev = mesh.devices[0]
+    require(mesh.devices == (torch.device("cuda", torch.cuda.current_device()),)
+            and mesh.size == world, f"mesh {mesh}")
+    name = torch.cuda.get_device_name(dev)
+    data = load_corpus(SIZE)
+    report = {"rank": rank, "world": world, "device": f"{dev} {name}", "runs": {}}
+    for path, fields, pin, must in SHARD_RUNS:
+        cfg = DeflateConfig(**fields)
+        C = cfg.chunk_size
+        n = SIZE // C
+        lo, hi = MH.host_shard_bounds(n)
+        rows = torch.frombuffer(bytearray(data[lo * C : hi * C]),
+                                dtype=torch.uint8).reshape(hi - lo, C)
+        lens = torch.full((hi - lo,), C, dtype=torch.int32)
+        fins = torch.arange(lo, hi) == n - 1
+
+        def encode():
+            g = [MH.make_global_batch(x, n, mesh) for x in (rows, lens, fins)]
+            out, sizes, adler = encode_sharded(*g, mesh, cfg)
+            body, total = assemble_ragged(out, sizes, out.numel())
+            return body, total, sizes, adler
+
+        def decode(body, total, sizes):
+            parts = [None] * world
+            dist.all_gather_object(parts, (body[: int(total)].cpu().numpy().tobytes(),
+                                           sizes.cpu().tolist()))
+            whole = b"".join(p[0] for p in parts)
+            offs = 8 * np.concatenate([[0], np.cumsum([s for p in parts for s in p[1]])])
+            got = decode_sharded(padded(whole), offs[:-1].astype(np.int32),
+                                 offs[1:].astype(np.int32), mesh, C,
+                                 static_only=not cfg.dynamic_encode)
+            torch.cuda.synchronize(dev)
+            return whole, got
+
+        def drive():
+            body, total, sizes, adler = encode()
+            return decode(body, total, sizes) + (int(adler),)
+
+        (whole, (outs, totals, errs), adler), counts, held, first = held_run(
+            path, drive, must)
+        require(int(errs.ne(0).sum()) == 0, f"{path}: decode errors "
+                f"{errs[errs != 0][:8].tolist()}")
+        require(bool((totals == C).all()) and torch.equal(outs.cpu(), rows),
+                f"{path}: decode_sharded did not return rank {rank}'s input")
+        if rank == 0:
+            stream = b"\x78\x9c" + whole + adler.to_bytes(4, "big")
+            require(zlib.decompress(stream) == data, f"zlib rejects the {path} stream")
+            if pin is not None:
+                require_pinned(stream, pin, path)
+            else:
+                require(stream == compress(data, cfg, device=dev),
+                        f"{path}: the stream differs from compress's")
+        runs = [first]
+        for _ in range(2):
+            t = time.perf_counter()
+            drive()
+            runs.append(time.perf_counter() - t)
+        enc = device_split(encode, 1)
+        body, total, sizes, _ = encode()
+        dec = device_split(lambda: decode(body, total, sizes), 1)
+        report["runs"][path] = dict(
+            counts=counts, held=held, host_s=runs, bytes=len(whole) + 6,
+            lanes=hi - lo, encode_device_ms=sum(enc.values()),
+            decode_device_ms=sum(dec.values()))
+        log(f"rank {rank}: {path} {report['runs'][path]}")
+    with open(report_path, "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def run_ranks(world: int, work: str) -> list:
+    """Phase 11's ranks, one process a card, on a free port, joined with a
+    time limit; a rank that fails fails the phase with its exit code and
+    its stderr.  Returns their reports."""
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS",
+                        "NUM_PROCESSES", "PROCESS_ID", "LOCAL_RANK")}
+    paths = [os.path.join(work, f"rank{r}.json") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard-rank", str(r),
+         str(world), str(port), paths[r]],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=REPO) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            log(f"[rank {r}] {line}")
+        require(p.returncode == 0, f"rank {r} of {world} failed with exit code "
+                f"{p.returncode}: {err[-4000:]}")
+    reports = []
+    for path in paths:
+        with open(path) as f:
+            reports.append(json.load(f))
+    return reports
 
 
 def main() -> None:
@@ -1760,13 +2016,6 @@ def main() -> None:
 
     # ---- 9. gzip and streaming ------------------------------------------
     t9 = time.perf_counter()
-    plain_of = {c[0]: c[4] for c in cases}
-    kernel_sites = [
-        (E, "match_bitplane_batch"), (E, "mono_scatter_add"), (H, "mono_compact"),
-        (D, "tokenize_static_batch"), (D, "tokenize_dyn_batch"),
-        (X, "expand_fused3"), (X, "resolve_roots"), (X, "expand_fused2"),
-        (KD, "ent_from_phi"), (F, "visited_from_adv"), (F, "tokenize_dyn_hier"),
-    ]
     steps = {"calls": 0, "waits": 0}
     stream_step = A.inflate_stream_step
 
@@ -1777,31 +2026,17 @@ def main() -> None:
         return out
 
     def checked(path: str, drive, must, keep: int = 1):
-        """A counted run of phase 9 with the first ``keep`` calls of each
-        kernel captured (arguments cloned as they were passed), then held
-        against the plain version outside the counts.  Returns (drive's
-        result, counts, calls held)."""
-        seen = {f: [] for _, f in kernel_sites}
-        originals = [capture_first(m, f, seen[f], keep) for m, f in kernel_sites]
+        """``held_run`` with the stream steps counted and the launches
+        recorded in launches_by_path.  Returns (drive's result, counts,
+        calls held)."""
         steps.update(calls=0, waits=0)
         A.inflate_stream_step = counted_step
         try:
-            out, counts = counted(path, drive, must)
+            out, counts, held, _ = held_run(path, drive, must, keep)
         finally:
             A.inflate_stream_step = stream_step
-            for (m, f), fn in zip(kernel_sites, originals):
-                setattr(m, f, fn)
-        held = 0
-        for (_, f), fn in zip(kernel_sites, originals):
-            for args, kw in seen[f]:
-                got = fn(*clone(args), **clone(kw))
-                want = plain_of[f](*clone(args), **clone(kw))
-                got = got if isinstance(got, tuple) else (got,)
-                want = want if isinstance(want, tuple) else (want,)
-                err = max_abs_err(got, want)
-                require(err == 0, f"{f} differs from its plain version on the "
-                        f"{path} run by {err}")
-                held += 1
+        for r in results:
+            r["launches_by_path"][path] = counts[r["name"]]
         return out, counts, held
 
     def median_spread(fn, first: float):
@@ -2057,6 +2292,94 @@ def main() -> None:
         f"phase 10 took {time.perf_counter() - t10:.1f} s (host clock)")
     shutil.rmtree(work)
 
+    # ---- 11. sharding ---------------------------------------------------
+    import numpy as np
+
+    from tpu_deflate_torch.dryrun import dryrun_multichip
+    from tpu_deflate_torch.parallel import shard as S
+
+    t11 = time.perf_counter()
+    world = torch.cuda.device_count()
+    work = os.path.join(REPO, "build", "phase11")
+    os.makedirs(work, exist_ok=True)
+    reports = run_ranks(world, work)
+    for path, _, _, _ in SHARD_RUNS:
+        runs = [rep["runs"][path] for rep in reports]
+        for r in results:
+            r["launches_by_path"][path] = sum(run["counts"][r["name"]] for run in runs)
+        counts = {r["name"]: r["launches_by_path"][path] for r in results}
+        for rank, run in enumerate(runs):
+            host = sorted(run["host_s"])
+            log(f"{path}: world {world}, rank {rank} ({reports[rank]['device']}): "
+                f"{run['lanes']} lanes, stream {run['bytes']} B, zlib verified"
+                f"{', equal to the JAX package' if path != 'sharded_long' else ', equal to compress'}"
+                f"'s, decode_sharded returned the input; encode_sharded + "
+                f"assemble_ragged + gather + decode_sharded median {host[1]:.4f} s, "
+                f"spread {host[-1] - host[0]:.4f} s of 3 (host clock); device time "
+                f"by the profiler: encode {run['encode_device_ms']:.3f} ms, decode "
+                f"{run['decode_device_ms']:.3f} ms; {run['held']} kernel calls "
+                f"equal to plain on {name}, {smi}")
+        log(f"{path}: launches over {world} rank(s) {counts}")
+
+    # in this process: a mesh that lists the card four times, no group
+    mesh4 = S.make_mesh([dev] * 4)
+    require(mesh4.group is None and mesh4.size == 4, f"mesh {mesh4}")
+
+    def mesh4_run():
+        out, sizes, adler = S.encode_sharded(chunks, lens, finals, mesh4, cfg)
+        body, total = S.assemble_ragged(out, sizes, out.numel())
+        whole = body[: int(total)].cpu().numpy().tobytes()
+        offs = 8 * np.concatenate([[0], np.cumsum(sizes.cpu().numpy())])
+        got = S.decode_sharded(padded(whole), offs[:-1].astype(np.int32),
+                               offs[1:].astype(np.int32), mesh4, chunk,
+                               static_only=True)
+        return b"\x78\x9c" + whole + int(adler).to_bytes(4, "big"), offs, got
+
+    ((stream4, offs4, (outs4, totals4, errs4)), first), counts, held = checked(
+        "sharded_mesh4", lambda: host_s(mesh4_run), SHARD_RUNS[0][3])
+    require_pinned(stream4, PIN_STATIC, "the four-entry mesh's")
+    require(int(errs4.ne(0).sum()) == 0 and torch.equal(outs4, chunks),
+            "decode_sharded over the four-entry mesh did not return the input")
+    med, spread = median_spread(mesh4_run, first)
+    mesh1 = S.make_mesh([dev])
+    enc_ms = {k: sum(device_split(lambda: S.encode_sharded(
+        chunks, lens, finals, m, cfg), 1).values()) for k, m in (("4", mesh4), ("1", mesh1))}
+    log(f"sharded_mesh4: a mesh of {dev} four times in one process: the "
+        f"DEFAULT stream again ({len(stream4)} B, equal to the JAX package's), "
+        f"decode_sharded returned the input; median {med:.4f} s, spread "
+        f"{spread:.4f} s of 3 (host clock); encode_sharded's device time by "
+        f"the profiler {enc_ms['4']:.3f} ms over the four entries, "
+        f"{enc_ms['1']:.3f} ms over one; {held} kernel calls equal to plain; "
+        f"launches {counts} on {name}, {smi}")
+
+    # outside the counts: every lane 3 bits into its byte (a body after 3
+    # bits of zeros) decodes as at bit 0, on the static kernel's resume path
+    body4 = stream4[2:-4]
+    bits = np.concatenate([np.zeros(3, np.uint8), np.unpackbits(
+        np.frombuffer(body4, np.uint8), bitorder="little")])
+    shifted = np.packbits(bits, bitorder="little").tobytes()
+    sgot = S.decode_sharded(padded(shifted), (offs4[:-1] + 3).astype(np.int32),
+                            (offs4[1:] + 3).astype(np.int32), S.make_mesh([dev]),
+                            chunk, static_only=True)
+    # a stored lane's payload starts at a byte boundary, which moved
+    huff = torch.tensor([(body4[o] >> 1) & 3 != 0 for o in offs4[:-1] // 8],
+                        device=dev)
+    require(all(torch.equal(a[huff], b[huff])
+                for a, b in zip(sgot, (outs4, totals4, errs4))),
+            "decode_sharded of the body 3 bits on differs")
+    log(f"decode_sharded: the {int(huff.sum())} Huffman lanes of {len(index)} "
+        f"3 bits into their bytes decode as at bit 0 (the static tokenizer "
+        f"resumed at bit 3)")
+
+    (_, dry_s), counts, held = checked(
+        "dryrun", lambda: host_s(lambda: dryrun_multichip(world)),
+        ("match_bitplane_batch", "mono_scatter_add", "mono_compact",
+         "tokenize_static_batch", "tokenize_dyn_batch", "expand_fused3"))
+    log(f"dryrun_multichip({world}) passed in {dry_s:.2f} s (host clock); "
+        f"{held} kernel calls equal to plain; launches {counts}; phase 11 took "
+        f"{time.perf_counter() - t11:.1f} s (host clock) on {name}, {smi}")
+    shutil.rmtree(work)
+
     for r in results:
         r["launches"] = r["launches_by_path"][OWN_PATH[r["name"]]]
         require(r["launches"] > 0, f"{r['name']} never launched on its own path")
@@ -2069,4 +2392,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--shard-rank"]:
+        shard_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+    else:
+        main()

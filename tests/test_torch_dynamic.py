@@ -91,11 +91,16 @@ def _freq(case):
         f[:] = rng.integers(0, 500, S) * (rng.random(S) < 0.6)
     elif case in ("cl", "dist"):
         f[:] = rng.integers(0, 60, S) * (rng.random(S) < 0.7)
+    elif case == "zipf":  # a long clipped tail: the repair's many rounds
+        f[:] = (1e9 / (1 + np.arange(S)) ** 2.5).astype(np.int64) + (np.arange(S) % 3)
+    elif case == "rare_ties":  # equal rare counts: the repair goes by index
+        f[:] = 1
+        f[[7, 100, 200]] = 1 << 28
     return f, max_bits
 
 
 @pytest.mark.parametrize("case", ["zero", "one", "two", "skewed", "ties",
-                                  "random", "cl", "dist"])
+                                  "random", "cl", "dist", "zipf", "rare_ties"])
 def test_tree_building_equals_jax(case):
     f, max_bits = _freq(case)
     got = E._assign_code_lengths(t(f)[None], max_bits)[0]
@@ -115,6 +120,46 @@ def test_tree_building_equals_jax(case):
     for got_x, want_x in zip(E._rle_code_lengths(L),
                              JE._rle_code_lengths_jax(lengths)):
         np.testing.assert_array_equal(got_x[0].numpy(), n(want_x))
+
+
+def _rounds_model(f, lengths, max_bits: int, rounds: int):
+    """The overflow repair as the JAX package runs it: ``rounds`` rounds,
+    each lengthening the rarest symbol of length 1 .. max_bits - 1 (the
+    first by index) while the code is oversubscribed."""
+    L = lengths.clone()
+    for _ in range(rounds):
+        over = (E._kraft(L, max_bits) > (1 << max_bits)).to(torch.int64)
+        can = (L > 0) & (L < max_bits)
+        pick = torch.argmin(torch.where(can, f, 1 << 30), dim=1)
+        L = L.scatter_add(1, pick[:, None], over[:, None])
+    return L
+
+
+@pytest.mark.parametrize("S, max_bits", [(286, 15), (30, 15), (19, 7)])
+def test_overflow_repair_closed_form_equals_rounds(S, max_bits):
+    """``_overflow_rounds`` adds what the rounds add, with the cap at 48
+    and at 3, on seeded rows: lengths by the ceil rule from skewed counts
+    (mostly within the budget) and seeded lengths far over it, some of
+    which need more than 48 rounds; equal counts among them, all below
+    2^30, as a chunk's are."""
+    rng = np.random.default_rng(S)
+    f = np.concatenate([
+        (1e9 / (1 + np.arange(S)) ** rng.uniform(1, 4, (8, 1))).astype(np.int64),
+        rng.integers(0, 8, (8, S)) * (rng.random((8, S)) < 0.8)]) + 1
+    f = torch.as_tensor(np.minimum(f, (1 << 30) - 1))
+    total = f.sum(1, keepdim=True)
+    q = total // f
+    blen = E._bit_length(q)
+    pow2 = (q & (q - 1)) == 0
+    ceil_rule = (torch.where(pow2, blen - 1, blen) + (pow2 & (total % f != 0))).clamp(1, max_bits)
+    seeded = torch.as_tensor(rng.integers(0, max_bits + 1, (16, S)))
+    L0 = torch.cat([ceil_rule, seeded])
+    f = torch.cat([f, f])
+    need = (_rounds_model(f, L0, max_bits, 1000) - L0).sum(1)
+    assert int(need.max()) > 48 and int((need == 0).sum()) > 0
+    for rounds in (48, 3):
+        got = L0 + E._overflow_rounds(f, L0, max_bits, rounds)
+        assert torch.equal(got, _rounds_model(f, L0, max_bits, rounds))
 
 
 def test_rle_runs_equal_jax():

@@ -42,16 +42,26 @@ def adler32_state(data: torch.Tensor, n: torch.Tensor):
     return a, b
 
 
-def adler32_fold(a: torch.Tensor, b: torch.Tensor, n: torch.Tensor) -> int:
-    """Adler-32 of the lanes' data concatenated in order, by a pairwise
-    tree of combines."""
+def adler32_fold_states(a: torch.Tensor, b: torch.Tensor, n: torch.Tensor):
+    """(a, b, len) 0-dim int64 tensors: the states of the lanes folded in
+    order, on their device, by a pairwise tree of combines (the combine is
+    associative, so this is the left-to-right fold).  No lane gives the
+    identity state (1, 0, 0)."""
     a, b, n = a.to(torch.int64), b.to(torch.int64), n.to(torch.int64)
+    one = torch.ones(1, dtype=torch.int64, device=a.device)
+    if a.shape[0] == 0:
+        a, b, n = one, one - 1, one - 1
     while a.shape[0] > 1:
-        if a.shape[0] % 2:  # the identity state (1, 0, 0) pads the odd lane
-            one = torch.ones(1, dtype=torch.int64, device=a.device)
+        if a.shape[0] % 2:  # the identity state pads the odd lane
             a, b, n = (torch.cat([a, one]), torch.cat([b, one - 1]),
                        torch.cat([n, one - 1]))
         a, b, n = adler32_pair_combine(
             (a[0::2], b[0::2], n[0::2]), (a[1::2], b[1::2], n[1::2])
         )
-    return (int(b[0]) << 16) | int(a[0])
+    return a[0], b[0], n[0]
+
+
+def adler32_fold(a: torch.Tensor, b: torch.Tensor, n: torch.Tensor) -> int:
+    """Adler-32 of the lanes' data concatenated in order."""
+    fa, fb, _ = adler32_fold_states(a, b, n)
+    return (int(fb) << 16) | int(fa)

@@ -60,12 +60,12 @@ def _static(name: str, dev) -> torch.Tensor:
 def dyn_header_params_batch(rows: torch.Tensor, ends: torch.Tensor,
                             base: torch.Tensor | None = None,
                             out_base: torch.Tensor | None = None,
-                            first: bool | None = None):
+                            first=None):
     """Parse the block header at bit base[b] (default 0, the first block)
     of each lane of rows uint8[B, M] with end bits ends int32[B];
     out_base[B] counts the lane's output bytes before that block (default
-    0) and goes into the table.  ``first`` says whether that header is the
-    lane's first (default: where base is 0).
+    0) and goes into the table.  ``first`` (a bool, or bool[B]) says
+    whether that header is the lane's first (default: where base is 0).
 
     Returns the dict of ``tpu_deflate.ops.decode.dyn_header_params_batch``
     (which parses bit 0) as int32: ok (a static block, or a dynamic one
@@ -108,10 +108,12 @@ def dyn_header_params_batch(rows: torch.Tensor, ends: torch.Tensor,
                                dyn_dist)
     dyn_start = pos0 + end_next
     start = torch.where(btype == 1, base + 3, dyn_start)
-    first = base == 0 if first is None else torch.full_like(base, first,
-                                                            dtype=torch.bool)
-    empty = first & (end <= 3)
-    start = torch.where(empty, 0, start)
+    if first is None:
+        first = base == 0
+    elif not isinstance(first, torch.Tensor):
+        first = torch.full_like(base, first, dtype=torch.bool)
+    empty = first & (end <= base + 3)
+    start = torch.where(empty, base, start)
     tab, min_len, trees_ok = pack_block_tab(lit_lengths, dist_lengths, start,
                                             out_base)
     ok = empty | (btype == 1) | ((btype == 2) & cl_ok & ~cover & trees_ok)
@@ -120,12 +122,12 @@ def dyn_header_params_batch(rows: torch.Tensor, ends: torch.Tensor,
     # where the block loop stops: the header at base runs if base < end (a
     # later header, after stored blocks, is only reached so).  The first
     # header is followed by a bounds check: a static block's symbols need
-    # 3 < end, a dynamic block's code lengths pos0 < end.  A later header
-    # runs on into its first pass.  A dynamic header fails on an
+    # base + 3 < end, a dynamic block's code lengths pos0 < end.  A later
+    # header runs on into its first pass.  A dynamic header fails on an
     # oversubscribed code-length code, then on lengths that do not decode
     # or oversubscribed trees.  Otherwise the first pass runs from start.
     nbits = 8 * M
-    fits3 = ~first | ((3 < end) & (3 <= nbits))
+    fits3 = ~first | ((base + 3 < end) & (base + 3 <= nbits))
     fits0 = ~first | ((pos0 < end) & (pos0 <= nbits))
     status = torch.where(
         btype == 1, torch.where(fits3, -1, ERR_INPUT),
@@ -156,7 +158,8 @@ def dyn_lanes(prep: dict):
 
 
 def tokenize_rows_batch(rows: torch.Tensor, ends: torch.Tensor, tok_cap: int,
-                        pwin: int, static_only: bool = True):
+                        pwin: int, static_only: bool = True,
+                        starts: torch.Tensor | None = None):
     """Stage 1 of ``decode_rows_batch``: (tk, ta, tb, ntok, out_total,
     end_pos, err) of each lane, see ``kernels.tokenize``.
 
@@ -167,36 +170,56 @@ def tokenize_rows_batch(rows: torch.Tensor, ends: torch.Tensor, tok_cap: int,
     block is stored or of type 3 by ``tokenize_static_batch``.  Where the
     static kernel stops at a dynamic block after stored ones, the dynamic
     kernel parses that header and goes on from the static kernel's tokens
-    and output.  Both kernels run over the whole batch."""
+    and output.  Both kernels run over the whole batch.
+
+    ``starts`` int32[B] (default 0) is the bit of each row at which its
+    first header lies, as ``tokenize``'s start bit; the static kernel then
+    resumes from it with no tokens and no output."""
     ends = ends.to(torch.int32)
-    if static_only:
-        return tokenize_static_batch(rows, ends, tok_cap, pwin)
     B, M = rows.shape
-    lead = rows[:, 0] if M else rows.new_zeros(B)
-    huff = ((lead >> 1) & 3 == 1) | ((lead >> 1) & 3 == 2)
-    st = tokenize_static_batch(rows, torch.where(huff, 0, ends), tok_cap, pwin)
+    dev = rows.device
+    resume = None
+    base = torch.zeros(B, dtype=torch.int32, device=dev)
+    if starts is not None:
+        base = starts.to(torch.int32)
+        zero = torch.zeros_like(base)
+        resume = (*(torch.zeros(B, tok_cap, dtype=torch.int32, device=dev)
+                    for _ in range(3)),
+                  torch.stack([base, zero, zero], 1).contiguous())
+    if static_only:
+        return tokenize_static_batch(rows, ends, tok_cap, pwin, resume=resume)
+    head = torch.nn.functional.pad(rows[:, :2].to(torch.int32), (0, 2 - min(M, 2)))
+    btype = ((head[:, 0] | (head[:, 1] << 8)) >> (base + 1)) & 3
+    huff = (btype == 1) | (btype == 2)
+    st = tokenize_static_batch(rows, torch.where(huff, 0, ends), tok_cap, pwin,
+                               resume=resume)
     after = st[6] == ERR_DYNAMIC
-    prep = dyn_header_params_batch(rows, ends, torch.where(after, st[5], 0),
-                                   torch.where(after, st[4], 0))
-    coded, starts, status = dyn_lanes(prep)
+    prep = dyn_header_params_batch(rows, ends, torch.where(after, st[5], base),
+                                   torch.where(after, st[4], 0), first=~after)
+    coded, sym_starts, status = dyn_lanes(prep)
     tok0 = torch.where(after, st[3], 0)
-    dyn = tokenize_dyn_batch(rows, ends, prep["tab"], starts, status, tok0,
+    dyn = tokenize_dyn_batch(rows, ends, prep["tab"], sym_starts, status, tok0,
                              tok_cap, pwin)
-    take = coded[:, None] & (torch.arange(tok_cap, device=rows.device)
+    take = coded[:, None] & (torch.arange(tok_cap, device=dev)
                              >= tok0[:, None])
     return tuple(torch.where(take if d.dim() == 2 else coded, d, s)
                  for d, s in zip(dyn, st))
 
 
 def decode_rows_batch(rows: torch.Tensor, ends: torch.Tensor, out_cap: int,
-                      tok_cap: int, static_only: bool = True):
-    """Chunk-parallel decode of per-lane rows uint8[B, M], each one
-    byte-aligned run of blocks ending at bit ends[b].  Lanes stop at their
-    first end-of-block.  Returns (out uint8[B, out_cap], totals int32[B],
-    errs int32[B]); ``static_only`` as in ``tokenize_rows_batch``."""
+                      tok_cap: int, static_only: bool = True,
+                      starts: torch.Tensor | None = None,
+                      stored_rows: torch.Tensor | None = None):
+    """Chunk-parallel decode of per-lane rows uint8[B, M], each one run of
+    blocks from bit starts[b] (default 0) to bit ends[b].  Lanes stop at
+    their first end-of-block.  Returns (out uint8[B, out_cap], totals
+    int32[B], errs int32[B]); ``static_only`` and ``starts`` as in
+    ``tokenize_rows_batch``.  A stored block's bytes are copied from
+    ``stored_rows`` (default rows), of the same shape."""
     tk, ta, tb, tp, _tot, _pos, err = tokenize_rows_batch(
-        rows, ends, tok_cap, chunk_pwin(out_cap), static_only)
-    out, total = expand_batch(rows, tk, ta, tb, tp, out_cap)
+        rows, ends, tok_cap, chunk_pwin(out_cap), static_only, starts)
+    src = rows if stored_rows is None else stored_rows
+    out, total = expand_batch(src, tk, ta, tb, tp, out_cap)
     return out, total, err
 
 

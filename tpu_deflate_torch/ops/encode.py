@@ -24,7 +24,9 @@ Four stages per lane, all lanes at once:
 Each lane is one block; a non-final lane ends byte-aligned with an
 empty stored block, so lanes concatenate bytewise into one stream, and a
 lane whose stored encoding is shorter is emitted stored instead.  Output
-is byte-identical to ``tpu_deflate.ops.encode.encode_blocks_batch``.
+is byte-identical to ``tpu_deflate.ops.encode.encode_blocks_batch``, and
+the single-lane ``encode_block_bits`` / ``encode_block`` (the sharding
+layer's dry run) to their JAX namesakes.
 """
 
 from __future__ import annotations
@@ -242,15 +244,30 @@ def _key3(b: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 def _match(data: torch.Tensor, n: torch.Tensor, config: DeflateConfig):
     """Stages 1+2 with the lazy deferral: (dist, length) [B, N] of lanes
     data uint8[B, N] of lengths n int32[B]."""
-    if config.window <= MAX_WINDOW:
-        dist, length = match_bitplane_batch(data, n, config.window, config.max_match)
-    else:
+    return _match_lanes(data, n, config.window, config.max_match,
+                        config.window > MAX_WINDOW, config.far_matcher,
+                        config.lazy)
+
+
+def _match_lanes(data: torch.Tensor, n: torch.Tensor, window: int,
+                 max_match: int, use_sort_matcher: bool, far_matcher: str,
+                 lazy: bool):
+    """``_match`` by the JAX package's switches: the sort-based far
+    matcher where ``use_sort_matcher``, else the ``match2`` kernel, which
+    takes windows up to 256."""
+    if use_sort_matcher:
         b = data.to(torch.int64)
         n64 = n.to(torch.int64)[:, None]
-        far = (_match_candidates_fast if config.far_matcher == "fast"
+        far = (_match_candidates_fast if far_matcher == "fast"
                else _match_candidates_multi)
-        dist, length = far(b, _key3(b, n64), n64, config.window, config.max_match)
-    if config.lazy:
+        dist, length = far(b, _key3(b, n64), n64, window, max_match)
+    elif window <= MAX_WINDOW:
+        dist, length = match_bitplane_batch(data, n, window, max_match)
+    else:
+        raise NotImplementedError(
+            "window > 256 without the sort matcher (the JAX package's "
+            "windowed sweep) is not ported; use_sort_matcher=True takes it")
+    if lazy:
         # one-step lazy matching: a literal here where the next position
         # holds a strictly longer match
         defer = (length >= 3) & (_ahead(length, 1) > length)
@@ -285,6 +302,47 @@ def _bit_length(q: torch.Tensor) -> torch.Tensor:
     return (q[..., None] >= p).sum(-1)
 
 
+def _overflow_rounds(f: torch.Tensor, lengths: torch.Tensor, max_bits: int,
+                     rounds: int) -> torch.Tensor:
+    """The JAX package's overflow repair in closed form: what ``rounds``
+    rounds of "while the code is oversubscribed, lengthen the rarest
+    symbol of length 1 .. max_bits - 1 (the first by index among equal
+    counts)" add to lengths int64[B, S].
+
+    The pick stays on one symbol until it reaches max_bits (counts do not
+    change, and lengths only grow), so the rounds raise the candidates in
+    (count, index) order, each to max_bits, the last only until the Kraft
+    sum fits; a round after that changes nothing.  No read back to the
+    host, and a fixed number of launches, where the rounds themselves
+    would take hundreds."""
+    B, S = f.shape
+    dev = f.device
+    can = (lengths > 0) & (lengths < max_bits)
+    key = torch.where(can, f, 1 << 30) * S + torch.arange(S, device=dev)
+    order = torch.argsort(key, dim=1)  # keys are unique
+    cl = torch.gather(lengths, 1, order)
+    cc = torch.gather(can, 1, order)
+    steps = torch.where(cc, max_bits - cl, 0)
+    top = _pow2((max_bits - cl).clamp_min(0))
+    gain = torch.where(cc, top - 1, 0)  # Kraft units freed by a full raise
+    gain_before = torch.cumsum(gain, 1) - gain
+    steps_before = torch.cumsum(steps, 1) - steps
+    excess = (_kraft(lengths, max_bits) - (1 << max_bits))[:, None]
+    # the candidate whose raise brings the sum within the budget, and the
+    # steps it takes: after t of them it has freed top - top / 2^t
+    fixes = cc & (gain_before + gain >= excess)
+    j = torch.argmax(fixes.to(torch.int64), dim=1, keepdim=True)  # first
+    room = (torch.gather(gain_before + top, 1, j) - excess).clamp_min(1)
+    cl_j = torch.gather(cl, 1, j)
+    t = (max_bits - cl_j - (_bit_length(room) - 1)).clamp_min(0)
+    need = torch.where((excess > 0) & fixes.any(1, keepdim=True),
+                       torch.gather(steps_before, 1, j) + t,
+                       torch.where(excess > 0, steps.sum(1, keepdim=True), 0))
+    done = need.clamp(max=rounds)
+    raised = torch.minimum((done - steps_before).clamp_min(0), steps)
+    return torch.zeros_like(lengths).scatter(1, order, raised)
+
+
 def _assign_code_lengths(freq: torch.Tensor, max_bits: int) -> torch.Tensor:
     """Length-limited prefix-code lengths int64[B, S] of frequencies
     int64[B, S], row by row.  The JAX package's rule, step for step:
@@ -309,13 +367,7 @@ def _assign_code_lengths(freq: torch.Tensor, max_bits: int) -> torch.Tensor:
 
     unit = 1 << max_bits
     big = 1 << 30
-    for _ in range(48):  # overflow repair; rounds past the last fix are no-ops
-        over = (_kraft(lengths, max_bits) > unit).to(torch.int64)
-        if not bool(over.any()):
-            break
-        can = (lengths > 0) & (lengths < max_bits)
-        pick = torch.argmin(torch.where(can, f, big), dim=1)  # first minimum
-        lengths = lengths.scatter_add(1, pick[:, None], over[:, None])
+    lengths = lengths + _overflow_rounds(f, lengths, max_bits, 48)
 
     for _ in range(2):  # deficit tightening, coarse to fine
         for lvl in range(max_bits, 1, -1):
@@ -662,3 +714,45 @@ def encode_blocks_batch(data: torch.Tensor, lengths: torch.Tensor,
         out[:, disp:] += packed[:, c, : M - disp] & 0xFF
         out[:, disp + 1 :] += (packed[:, c, : M - disp - 1] >> 8) & 0xFF
     return _finalize_block(data, lengths, finals, out, total_bits, M) + (ntok,)
+
+
+def encode_block_bits(data: torch.Tensor, n, final, window: int, max_match: int,
+                      use_sort_matcher: bool, lazy: bool = False,
+                      dynamic_encode: bool = False, far_matcher: str = "exact"):
+    """Encode one lane data uint8[N] of length n: (out uint8[M], out_len,
+    ntok), 0-dim int32 tensors, with M = max_output_bytes(N); ``final``
+    sets BFINAL.  ``tpu_deflate.ops.encode.encode_block_bits``, byte for
+    byte: the lane as a batch of one through the matcher and the
+    emissions, then a pack that adds each emission's five bytes into the
+    output with one ``scatter_add_`` (the JAX package's single-lane pack,
+    where the batch takes the bit-pack kernel)."""
+    N = data.shape[0]
+    M = max_output_bytes(N)
+    dev = data.device
+    rows = data.reshape(1, N)
+    n1 = torch.as_tensor(n, device=dev).to(torch.int32).reshape(1)
+    f1 = torch.as_tensor(final, device=dev).to(torch.bool).reshape(1)
+    dist, length = _match_lanes(rows, n1, window, max_match, use_sort_matcher,
+                                far_matcher, lazy)
+    vals, nbs, offs, total_bits, ntok = _encode_emissions(
+        rows, n1, f1, dist, length, dynamic_encode)
+    # an emission of <= 31 bits shifted by its bit offset (<= 7) spans <= 5
+    # bytes; emissions are bit-disjoint, so the byte sums are carry-free
+    k = torch.arange(5, device=dev)
+    v = torch.where(nbs > 0, vals, 0) << (offs & 7)
+    contrib = ((v[..., None] >> (8 * k)) & 0xFF).to(torch.int32)
+    tgt = ((offs >> 3)[..., None] + k).clamp(0, M - 1)
+    out = torch.zeros(1, M, dtype=torch.int32, device=dev).scatter_add_(
+        1, tgt.reshape(1, -1), contrib.reshape(1, -1))
+    out, out_len = _finalize_block(rows, n1, f1, out, total_bits, M)
+    return out[0], out_len[0], ntok[0]
+
+
+def encode_block(data: torch.Tensor, n, final,
+                 config: DeflateConfig = DeflateConfig()):
+    """``encode_block_bits`` with the config's switches: the sort matcher
+    for windows over 256."""
+    return encode_block_bits(
+        data, n, final, window=config.window, max_match=config.max_match,
+        use_sort_matcher=config.window > MAX_WINDOW, lazy=config.lazy,
+        dynamic_encode=config.dynamic_encode, far_matcher=config.far_matcher)
