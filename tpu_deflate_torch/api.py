@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from tpu_deflate_torch.config import DeflateConfig
-from tpu_deflate_torch.ops.checksum import adler32_fold, adler32_state
+from tpu_deflate_torch.ops.checksum import adler32_fold_states, adler32_state
 from tpu_deflate_torch.ops.decode import (
     ERR_DYNAMIC,
     decode_rows_batch,
@@ -30,6 +30,7 @@ from tpu_deflate_torch.ops.decode import (
 )
 from tpu_deflate_torch.ops.encode import encode_blocks_batch
 from tpu_deflate_torch.ref.inflate import DeflateError
+from tpu_deflate_torch.utils.profiling import span
 
 _ZLIB_HEADER = b"\x78\x9c"
 
@@ -53,19 +54,28 @@ def deflate_device(data: bytes, config: DeflateConfig = DeflateConfig(),
     if config.one_block:
         chunk_size = max(chunk_size, 1 << int(np.ceil(np.log2(max(len(data), 2)))))
     arr, lengths = _chunk(data, chunk_size)
-    chunks = torch.from_numpy(arr).to(device)
-    lens = torch.from_numpy(lengths).to(device)
-    finals = torch.zeros(len(lengths), dtype=torch.bool, device=device)
-    finals[-1] = True
+    with span("td.api.h2d"):
+        chunks = torch.from_numpy(arr).to(device)
+        lens = torch.from_numpy(lengths).to(device)
+        finals = torch.zeros(len(lengths), dtype=torch.bool, device=device)
+        finals[-1] = True
     out, out_lens, _ = encode_blocks_batch(chunks, lens, finals, config)
-    a, b = adler32_state(chunks, lens)
-    return out, out_lens, adler32_fold(a, b, lens)
+    with span("td.checksum.adler"):
+        a, b = adler32_state(chunks, lens)
+        fa, fb, _ = adler32_fold_states(a, b, lens)
+    # the call's first wait on the card: the fold's scalars come after the
+    # whole encode on the stream
+    with span("td.api.d2h"):
+        adler = (int(fb) << 16) | int(fa)
+    return out, out_lens, adler
 
 
 def _body(out: torch.Tensor, out_lens: torch.Tensor) -> bytes:
     """The lanes' bytes, in order: a DEFLATE body."""
     keep = torch.arange(out.shape[1], device=out.device) < out_lens[:, None]
-    return out[keep].cpu().numpy().tobytes()  # row-major: chunks in order
+    with span("td.api.d2h"):
+        body = out[keep].cpu()
+    return body.numpy().tobytes()  # row-major: chunks in order
 
 
 def _stream(out: torch.Tensor, out_lens: torch.Tensor, adler: int) -> bytes:
@@ -77,7 +87,8 @@ def compress(data: bytes, config: DeflateConfig = DeflateConfig(),
     """zlib-compatible compress on ``device``."""
     if not config.compress:
         raise ValueError("config disables compress")
-    return _stream(*deflate_device(data, config, device))
+    with span("td.api.compress"):
+        return _stream(*deflate_device(data, config, device))
 
 
 def decompress(data: bytes, config: DeflateConfig = DeflateConfig(),
@@ -93,9 +104,11 @@ def compress_indexed(data: bytes, config: DeflateConfig = DeflateConfig(),
                      device="cuda"):
     """Compress and return (zlib stream, int64 compressed size of each
     chunk).  The index is a sidecar: any zlib reads the stream alone."""
-    out, out_lens, adler = deflate_device(data, config, device)
-    index = out_lens.cpu().numpy().astype(np.int64)
-    return _stream(out, out_lens, adler), index
+    with span("td.api.compress_indexed"):
+        out, out_lens, adler = deflate_device(data, config, device)
+        with span("td.api.d2h"):
+            index = out_lens.cpu().numpy().astype(np.int64)
+        return _stream(out, out_lens, adler), index
 
 
 def decompress_indexed(stream: bytes, index, config: DeflateConfig = DeflateConfig(),
@@ -186,11 +199,12 @@ def compress_gzip(data: bytes, config: DeflateConfig = DeflateConfig(),
                   device="cuda") -> bytes:
     """gzip (RFC 1952) compress on ``device``: one member whose body is
     ``compress``'s DEFLATE body."""
-    out, out_lens, _ = deflate_device(data, config, device)
-    header = b"\x1f\x8b\x08\x00\x00\x00\x00\x00\x00\xff"
-    trailer = (zlib.crc32(data).to_bytes(4, "little")
-               + (len(data) & 0xFFFFFFFF).to_bytes(4, "little"))
-    return header + _body(out, out_lens) + trailer
+    with span("td.api.compress_gzip"):
+        out, out_lens, _ = deflate_device(data, config, device)
+        header = b"\x1f\x8b\x08\x00\x00\x00\x00\x00\x00\xff"
+        trailer = (zlib.crc32(data).to_bytes(4, "little")
+                   + (len(data) & 0xFFFFFFFF).to_bytes(4, "little"))
+        return header + _body(out, out_lens) + trailer
 
 
 # --- self-indexing multi-member gzip ----------------------------------------

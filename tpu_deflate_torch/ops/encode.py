@@ -38,6 +38,7 @@ from tpu_deflate_torch.kernels.match2 import MAX_WINDOW, match_bitplane_batch
 from tpu_deflate_torch.kernels.monotone import mono_scatter_add
 from tpu_deflate_torch.ops.header import chase_reach
 from tpu_deflate_torch.spec import tables as T
+from tpu_deflate_torch.utils.profiling import span
 
 _STORED_MAX = 65535
 
@@ -699,21 +700,25 @@ def encode_blocks_batch(data: torch.Tensor, lengths: torch.Tensor,
     gives each lane dynamic trees where they are smaller."""
     B, N = data.shape
     M = max_output_bytes(N)
-    lengths = lengths.to(torch.int32)
-    dist, length = _match(data, lengths, config)
-    vals, nbs, offs, total_bits, ntok = _encode_emissions(
-        data, lengths, finals, dist, length, config.dynamic_encode
-    )
+    dev = data.device
+    with span("td.encode.match", dev):
+        lengths = lengths.to(torch.int32)
+        dist, length = _match(data, lengths, config)
+    with span("td.encode.emit", dev):
+        vals, nbs, offs, total_bits, ntok = _encode_emissions(
+            data, lengths, finals, dist, length, config.dynamic_encode
+        )
 
-    idx, ch = _bitpack_entries(vals, nbs, offs, _emission_bits(config))
-    packed = mono_scatter_add(idx, ch, M + 8)
-    # emissions are bit-disjoint, so every byte sum below is carry-free
-    out = torch.zeros(B, M, dtype=torch.int32, device=data.device)
-    for c in range(ch.shape[1]):
-        disp = 2 * c
-        out[:, disp:] += packed[:, c, : M - disp] & 0xFF
-        out[:, disp + 1 :] += (packed[:, c, : M - disp - 1] >> 8) & 0xFF
-    return _finalize_block(data, lengths, finals, out, total_bits, M) + (ntok,)
+    with span("td.encode.pack", dev):
+        idx, ch = _bitpack_entries(vals, nbs, offs, _emission_bits(config))
+        packed = mono_scatter_add(idx, ch, M + 8)
+        # emissions are bit-disjoint, so every byte sum below is carry-free
+        out = torch.zeros(B, M, dtype=torch.int32, device=dev)
+        for c in range(ch.shape[1]):
+            disp = 2 * c
+            out[:, disp:] += packed[:, c, : M - disp] & 0xFF
+            out[:, disp + 1 :] += (packed[:, c, : M - disp - 1] >> 8) & 0xFF
+        return _finalize_block(data, lengths, finals, out, total_bits, M) + (ntok,)
 
 
 def encode_block_bits(data: torch.Tensor, n, final, window: int, max_match: int,

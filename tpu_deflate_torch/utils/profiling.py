@@ -1,25 +1,172 @@
-"""Throughput counters for stages, and a device trace.
+"""Spans on the profiler's clock, throughput counters for stages, and a
+device trace.
+
+Spans mark the layer boundaries of the compress path (``td.api.*``,
+``td.encode.*``, ``td.checksum.*``).  They record only while a
+``torch.profiler`` is recording; otherwise ``span`` returns one shared
+no-op context, so an untraced call pays a flag test a span:
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        compress_indexed(data, device="cuda")
+    for s in spans():   # name, id, parent, root, t0_ns, t1_ns, card_ms
+        ...
+    prof.export_chrome_trace("trace.json")   # the spans beside the kernels
+
+A span enters ``torch.profiler.record_function`` under its name, so it
+shows in the Chrome trace on the clock of the device operations; where it
+is given a CUDA device it records a timing event on the current stream at
+each end, and ``card_ms`` is the stretch of the stream between them:
+launch gaps included, not the card's busy time.  Spans live in a bounded
+buffer of this process, as the profiler's own state does.
 
     prof = Profiler(device="cuda")
     with prof.stage("encode", nbytes=len(data)):
         compress(data, device="cuda")
     print(prof.report())   # [{"name", "bytes", "seconds", "calls", "GB/s"}]
 
-On a CUDA device a stage is timed by CUDA events recorded on the current
-stream around it, and the stage waits for its stop event, so the time is
-the device's; on the CPU by the host clock.  ``device_trace`` writes a
-``torch.profiler`` trace (Chrome trace JSON, one file a trace) of what runs
-inside it.
+On a CUDA device a stage is timed by the same event pair, and the stage
+waits for its stop event, so its seconds are stream time between the
+markers, launch gaps included; on the CPU they are the host clock's.
+``device_trace`` writes a ``torch.profiler`` trace (Chrome trace JSON,
+one file a trace) of what runs inside it.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import contextvars
+import itertools
 import json
 import time
 from dataclasses import dataclass, field
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_BUFFER = collections.deque(maxlen=4096)
+_IDS = itertools.count(1)
+_OPEN = contextvars.ContextVar("tpu_deflate_torch_open_span", default=None)
+
+
+class _Off:
+    """The no-op context of a span while no profiler records (half the
+    cost of ``contextlib.nullcontext``, whose methods take more work)."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, kind, value, tb):
+        return None
+
+
+_OFF = _Off()
+
+
+class _Stretch:
+    """A stretch of the host clock and, on a CUDA device, a timing event
+    pair on the stream that is current when it starts."""
+
+    __slots__ = ("t0_ns", "t1_ns", "_stream", "_start", "_stop")
+
+    def __init__(self, device=None):
+        self._stream = self._start = self._stop = None
+        if device is not None and torch.device(device).type == "cuda":
+            self._stream = torch.cuda.current_stream(device)
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record(self._stream)
+        self.t0_ns = time.perf_counter_ns()
+        self.t1_ns = None
+
+    def stop(self) -> None:
+        if self._stream is not None:
+            self._stop = torch.cuda.Event(enable_timing=True)
+            self._stop.record(self._stream)
+        self.t1_ns = time.perf_counter_ns()
+
+    def card_ms(self):
+        """The stream's time between the events (waits for the stop
+        event), or None without a card."""
+        if self._stop is None:
+            return None
+        self._stop.synchronize()
+        return self._start.elapsed_time(self._stop)
+
+
+@dataclass
+class Span:
+    """One recorded span: host times from ``time.perf_counter_ns``;
+    ``card_ms`` the stream's stretch between its events, None without a
+    card.  ``root`` is the id of the outermost span around it (its own
+    where it has no parent)."""
+
+    name: str
+    id: int
+    parent: int | None
+    root: int
+    t0_ns: int
+    t1_ns: int
+    card_ms: float | None = None
+    _stretch: _Stretch | None = field(default=None, repr=False, compare=False)
+
+    @property
+    def host_ms(self) -> float:
+        return (self.t1_ns - self.t0_ns) / 1e6
+
+
+class _Recording:
+    """An open span: its place among the open spans, its annotation in
+    the profiler and its stretch."""
+
+    __slots__ = ("name", "device", "id", "parent", "root", "token", "fn", "stretch")
+
+    def __init__(self, name: str, device):
+        self.name, self.device = name, device
+
+    def __enter__(self):
+        self.id = next(_IDS)
+        parent = _OPEN.get()
+        self.parent, self.root = (None, self.id) if parent is None else (parent.id, parent.root)
+        self.token = _OPEN.set(self)
+        self.fn = _autograd_profiler.record_function(self.name)
+        self.fn.__enter__()
+        self.stretch = _Stretch(self.device)
+
+    def __exit__(self, *exc):
+        self.stretch.stop()
+        self.fn.__exit__(*exc)
+        _OPEN.reset(self.token)
+        s = self.stretch
+        _BUFFER.append(Span(self.name, self.id, self.parent, self.root, s.t0_ns, s.t1_ns,
+                            _stretch=s))
+        return False
+
+
+def span(name: str, device=None):
+    """A context that records a span named ``name`` (``td.<layer>.<stage>``)
+    while a ``torch.profiler`` is recording, with card events where
+    ``device`` is a CUDA device; a shared no-op context otherwise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Recording(name, device)
+
+
+def spans() -> list:
+    """The spans recorded so far, in the order they ended, each with its
+    ``card_ms`` read (this waits for their events)."""
+    out = list(_BUFFER)
+    for s in out:
+        if s._stretch is not None:
+            s.card_ms, s._stretch = s._stretch.card_ms(), None
+    return out
+
+
+def clear() -> None:
+    """Empty the buffer of spans."""
+    _BUFFER.clear()
 
 
 @dataclass
@@ -47,8 +194,8 @@ class Counter:
 
 @dataclass
 class Profiler:
-    """Stage profiler on ``device`` (CUDA events there; the host clock on
-    the CPU)."""
+    """Stage profiler on ``device``: stream time between CUDA events there,
+    launch gaps included; the host clock on the CPU."""
 
     counters: dict = field(default_factory=dict)
     device: str = "cuda"
@@ -56,21 +203,13 @@ class Profiler:
     @contextlib.contextmanager
     def stage(self, name: str, nbytes: int = 0):
         c = self.counters.setdefault(name, Counter(name))
-        dev = torch.device(self.device)
-        if dev.type == "cuda":
-            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record(torch.cuda.current_stream(dev))
-        else:
-            t0 = time.perf_counter()
+        s = _Stretch(self.device)
         try:
             yield c
         finally:
-            if dev.type == "cuda":
-                stop.record(torch.cuda.current_stream(dev))
-                stop.synchronize()
-                c.seconds += start.elapsed_time(stop) / 1e3
-            else:
-                c.seconds += time.perf_counter() - t0
+            s.stop()
+            card = s.card_ms()
+            c.seconds += (s.t1_ns - s.t0_ns) / 1e9 if card is None else card / 1e3
             c.bytes_processed += nbytes
             c.calls += 1
 
