@@ -36,7 +36,12 @@ Phases, each of which raises on failure:
                64 KiB, a stored token of the whole row and rows of 4096
                bytes; match2 on 8 MiB of random bytes and of zeros, and on
                lanes cut short at (window, max_match) (1, 3), (100, 10) and
-               (256, 258); the bit-pack on the dynamic path's entries, on
+               (256, 258); the exact far matcher (FULL_WINDOW's) on the
+               corpus at window 1024, on 8 MiB of random bytes and of
+               zeros and on one row of 1 MiB, each timed beside its plain
+               version, on the same short lanes at (300, 12), (1024, 258)
+               and (32768, 258), and its launches and the match stage's
+               (at most 40); the bit-pack on the dynamic path's entries, on
                the encoder's entries over zeros at max_match 258, on
                seeded edge lanes (dead head and tail, no live entry, runs
                over slabs), on the main path's batch with its last lane
@@ -115,8 +120,9 @@ Phases, each of which raises on failure:
                must equal the input, gzip must read the members, and
                they must equal the JAX package's, pinned below; the first
                call of each kernel in each run (the first two in the
-               stream run) is held against its plain version; all eleven
-               kernels must launch across the four runs; the host-clock
+               stream run) is held against its plain version; every kernel
+               but the exact far matcher must launch across the four runs,
+               and it must not; the host-clock
                median and spread of three runs of each decode and the
                number of stream steps are logged.  Outside the counts:
                StreamDecompressor over the port's own stream and over
@@ -136,8 +142,11 @@ Phases, each of which raises on failure:
                decode must return the input; the first call of each
                kernel is held against its plain version; the ratio
                against zlib -6 and the encode's GB/s by CUDA events and
-               by the profiler, split into the far matcher's glue (its
-               own profiled run), the bit-pack and the rest, are logged.
+               by the profiler, split into the match stage (its own
+               profiled run: the far matcher's kernels and sort, or the
+               fast one's glue), the bit-pack and the rest, are logged;
+               the exact far matcher must launch in the exact runs and
+               not in the fast one.
                FULL_WINDOW's stream also decodes through decompress (the
                device-paced decode).  Outside the counts: run_selftest on
                the card, the CLI at levels fast, ref and max (zlib, gzip,
@@ -242,7 +251,7 @@ OWN_PATH = {
     "tokenize_dyn_batch": "dynamic", "mono_compact": "dynamic",
     "expand_fused2": "stream", "resolve_roots": "stream_stored_mix",
     "ent_from_phi": "foreign", "visited_from_adv": "foreign",
-    "tokenize_dyn_hier": "foreign",
+    "tokenize_dyn_hier": "foreign", "far_match_batch": "full_window",
 }
 
 
@@ -265,6 +274,14 @@ def work_match(args, outs):
     dist, length = outs
     searched = int(dist.where(dist > 0, dist.new_tensor(window)).sum())
     return nbytes(chunks, lens, dist, length), searched + int(length.sum())
+
+
+def work_far(args, outs):
+    """Each byte read once and a distance and a length written a position;
+    a compare for each of the six candidates and each byte matched."""
+    chunks, lens, _, _ = args
+    dist, length = outs
+    return nbytes(chunks, lens) + 8 * dist.numel(), 6 * dist.numel() + int(length.sum())
 
 
 def work_scatter(args, outs):
@@ -423,10 +440,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_split(fn, reps: int) -> dict:
-    """Mean device milliseconds of fn() by kernel name, over reps calls
-    after one warm-up: the profiler's time of everything fn launches on
-    the card (kernels, copies, memsets)."""
+def device_ops(fn, reps: int) -> list:
+    """The device operations of reps calls of fn() after one warm-up, by
+    the profiler: kernels, copies, memsets.  The program's spans (``td.*``,
+    ``utils/profiling.py``) are left out: the profiler also sets them on
+    the device's timeline, as stretches that hold the operations."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -437,31 +455,26 @@ def device_split(fn, reps: int) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.name.startswith("td.")]
+
+
+def device_split(fn, reps: int) -> dict:
+    """Mean device milliseconds of fn() by kernel name, over reps calls
+    after one warm-up: the profiler's time of everything fn launches on
+    the card (kernels, copies, memsets)."""
     split = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms = e.time_range.elapsed_us() / 1e3 / reps
-            split[e.name] = split.get(e.name, 0.0) + ms
+    for e in device_ops(fn, reps):
+        split[e.name] = split.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
     return split
 
 
 def device_launches(fn, reps: int) -> dict:
     """Device operations a call of fn() by name (kernels, copies,
     memsets), over reps calls after one warm-up."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     counts = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            counts[e.name] = counts.get(e.name, 0) + 1 / reps
+    for e in device_ops(fn, reps):
+        counts[e.name] = counts.get(e.name, 0) + 1 / reps
     return counts
 
 
@@ -638,7 +651,7 @@ def kernel_sites() -> list:
     """(call site's module, name, wrapper, plain version) of every kernel:
     the wrapper carries the launch count, and the port's paths look the
     kernel up in the call site's module, where a capture sees each call."""
-    from tpu_deflate_torch.kernels import chase1, expand2, expand3, match2
+    from tpu_deflate_torch.kernels import chase1, expand2, expand3, farmatch, match2
     from tpu_deflate_torch.kernels import monotone, resolve, tokenize, tokenize_dyn
     from tpu_deflate_torch.ops import decode as D
     from tpu_deflate_torch.ops import encode as E
@@ -649,6 +662,7 @@ def kernel_sites() -> list:
     return [
         (E, "match_bitplane_batch", match2.match_bitplane_batch,
          match2.match_bitplane_plain),
+        (E, "far_match_batch", farmatch.far_match_batch, E._far_match_plain),
         (E, "mono_scatter_add", monotone.mono_scatter_add,
          monotone.mono_scatter_add_plain),
         (H, "mono_compact", monotone.mono_compact, monotone.mono_compact_plain),
@@ -875,6 +889,7 @@ def main() -> None:
     from tpu_deflate_torch.kernels.expand2 import TILE as E2_TILE
     from tpu_deflate_torch.kernels.expand2 import expand_fused2, expand_fused2_plain
     from tpu_deflate_torch.kernels.expand3 import expand_fused3, expand_fused3_plain
+    from tpu_deflate_torch.kernels.farmatch import far_match_batch
     from tpu_deflate_torch.kernels.match2 import (
         match_bitplane_batch,
         match_bitplane_plain,
@@ -1032,6 +1047,10 @@ def main() -> None:
         ("mono_scatter_add", "monotone.cu", "tpu_deflate/kernels/monotone.py:110",
          mono_scatter_add, mono_scatter_add_plain, (idx, ch, M + 8),
          work_scatter, scatter_library(idx, ch, M + 8)),
+        ("far_match_batch", "farmatch.cu",
+         "none (tpu_deflate/ops/encode.py:162 _match_candidates_multi, jnp glue)",
+         far_match_batch, E._far_match_plain,
+         (chunks, lens, FULL_WINDOW.window, FULL_WINDOW.max_match), work_far, None),
         ("tokenize_static_batch", "tokenize.cu",
          "tpu_deflate/kernels/tokenize.py:469",
          tokenize_static_batch, tokenize_static_plain, tokenize_args,
@@ -1177,6 +1196,44 @@ def main() -> None:
     log(f"kernel match_bitplane_batch: equal to plain on 16 lanes cut short "
         f"(corpus, zeros, random) at (window, max_match) (1, 3), (100, 10), "
         f"(256, 258)")
+
+    # the exact far matcher: the corpus at window 1024, 8 MiB of random
+    # bytes and of zeros and one row of 1 MiB (B = 1, as a shard encodes
+    # it) at the full window, each timed beside its plain version; the
+    # short lanes at (window, max_match) (300, 12), (1024, 258), (32768,
+    # 258); the launches of a call and of the whole match stage
+    fw_win, fw_max = FULL_WINDOW.window, FULL_WINDOW.max_match
+    far_cases = (("the corpus at window 1024", (chunks, lens, 1024, fw_max)),
+                 ("random bytes", (rnd, lens, fw_win, fw_max)),
+                 ("zeros", (torch.zeros_like(chunks), lens, fw_win, fw_max)),
+                 ("one row of 1 MiB", (chunks.reshape(-1, 1 << 20)[:1], lens[:1] * 16,
+                                       fw_win, fw_max)))
+    for what, fargs in far_cases:
+        got = far_match_batch(*fargs)
+        err = max_abs_err(got, E._far_match_plain(*fargs))
+        require(err == 0, f"far_match_batch differs from plain on {what} by {err}")
+        fdev = device_ms(lambda: far_match_batch(*fargs))
+        fplain = cuda_ms(lambda: E._far_match_plain(*fargs), reps=2)
+        fbound = bound(*work_far(fargs, got))[0]
+        log(f"kernel far_match_batch on {what} ({tuple(fargs[0].shape)}, window "
+            f"{fargs[2]}): equal to plain; device {fmt_ms(fdev)}, bound {fbound:.5f} "
+            f"ms, plain {fplain:.3f} ms on {name}, {smi}")
+    for mwin, mmax in ((300, 12), (1024, 258), (32768, 258)):
+        got = far_match_batch(short, slens, mwin, mmax)
+        err = max_abs_err(got, E._far_match_plain(short, slens, mwin, mmax))
+        require(err == 0, f"far_match_batch differs from plain at window {mwin}, "
+                f"max_match {mmax} by {err}")
+        require(int(got[1].max()) == mmax, f"longest match {int(got[1].max())}")
+    per_call = device_launches(lambda: far_match_batch(chunks, lens, fw_win, fw_max), 5)
+    stage = device_launches(lambda: E._match(chunks, lens, FULL_WINDOW), 5)
+    stage_ms = device_ms(lambda: E._match(chunks, lens, FULL_WINDOW))
+    require(sum(stage.values()) <= 40, f"the match stage launches {stage}")
+    log(f"kernel far_match_batch: equal to plain on 16 lanes cut short (corpus, "
+        f"zeros, random) at (window, max_match) (300, 12), (1024, 258), (32768, "
+        f"258); a call launches {sum(per_call.values()):.0f} ops ("
+        + ", ".join(f"{k[:60]} {v:.0f}" for k, v in sorted(per_call.items()))
+        + f"); FULL_WINDOW's match stage with the lazy step {sum(stage.values()):.0f} "
+        f"ops, device {fmt_ms(stage_ms)} on {name}, {smi}")
 
     # the bit-pack on the dynamic path's entries (C = 3), on the encoder's
     # entries over zeros at max_match 258 (runs of one index of at least
@@ -2128,9 +2185,10 @@ def main() -> None:
         f"resolve_roots with and without a 32 KiB window); launches {counts} "
         f"on {name}, {smi}")
     every = {k for c in new_runs.values() for k, v in c.items() if v}
-    require(every == {r["name"] for r in results},
-            f"kernels that never launched on the new runs: "
-            f"{sorted({r['name'] for r in results} - every)}")
+    # every kernel but the full window's exact far matcher (phase 10)
+    kernels9 = {r["name"] for r in results} - {"far_match_batch"}
+    require(every == kernels9, f"kernels that launched or not on the new "
+            f"runs: {sorted(every ^ kernels9)}")
 
     # outside the counts: the port's own stream, the start of -6 in 4 KiB
     # slices, StreamCompressor, compress_gzip, gzip header fields, FALLBACK
@@ -2190,14 +2248,16 @@ def main() -> None:
     t10 = time.perf_counter()
     fw_runs = (
         ("full_window", FULL_WINDOW, PIN_FULL_WINDOW,
-         ("mono_scatter_add", "mono_compact", "tokenize_dyn_batch", "expand_fused3")),
+         ("far_match_batch", "mono_scatter_add", "mono_compact", "tokenize_dyn_batch",
+          "expand_fused3")),
         ("full_fast", DeflateConfig(window=32768, max_match=258, lazy=True,
                                     chunk_size=1 << 16, far_matcher="fast"),
          PIN_FULL_FAST, ("mono_scatter_add", "tokenize_static_batch", "expand_fused3")),
         ("best_ratio", DeflateConfig(window=32768, max_match=258, lazy=True,
                                      dynamic_encode=True, chunk_size=1 << 18),
          PIN_BEST_RATIO,
-         ("mono_scatter_add", "mono_compact", "tokenize_dyn_batch", "expand_fused2")),
+         ("far_match_batch", "mono_scatter_add", "mono_compact", "tokenize_dyn_batch",
+          "expand_fused2")),
     )
     for path_name, fcfg, pin, must in fw_runs:
         (fstream, findex, fback, enc_s, dec_s), counts, held = checked(
@@ -2205,6 +2265,8 @@ def main() -> None:
         require(fback == data, f"{path_name}: decompress_indexed did not return the input")
         require(zlib.decompress(fstream) == data, f"zlib rejects the {path_name} stream")
         require_pinned(fstream, pin, path_name)
+        require((counts["far_match_batch"] > 0) == (fcfg.far_matcher == "exact"),
+                f"{path_name}: far_match_batch launched {counts['far_match_batch']} times")
         if path_name == "full_window":
             back, fw_dec_s = host_s(lambda: decompress(fstream, device=dev))
             require(back == data, "decompress of the full-window stream differs")
@@ -2239,8 +2301,9 @@ def main() -> None:
             f"decompress_indexed {dec_s:.4f} s (host clock, first call); "
             f"encode_blocks_batch {ev_ms:.3f} ms = {SIZE / ev_ms / 1e6:.4f} GB/s "
             f"by CUDA events, {dev_total:.3f} ms = {SIZE / dev_total / 1e6:.4f} "
-            f"GB/s device time by the profiler: the matcher's glue "
-            f"{matcher_ms:.3f} ms (its own run, {len(msplit)} kinds of launch, "
+            f"GB/s device time by the profiler: the match stage ("
+            f"{'the far_match_batch kernels and their sort' if fcfg.far_matcher == 'exact' else 'the fast far matcher glue'}"
+            f") {matcher_ms:.3f} ms (its own run, {len(msplit)} kinds of launch, "
             f"led by " + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top) + "), "
             f"the bit-pack {pack_ms:.4f} ms, "
             f"the rest {dev_total - matcher_ms - pack_ms:.3f} ms, in {len(split)} "

@@ -70,7 +70,9 @@ def device_split(fn, reps: int = 10) -> dict:
     """Mean device milliseconds of fn() by launch name: the profiler's
     time of everything it launches on the card, over reps calls after one
     warm-up; {} where a try saw no device time, after three tries (a short
-    profile sometimes comes back without kernels)."""
+    profile sometimes comes back without kernels).  The program's spans
+    (``td.*``), which the profiler also sets on the device's timeline, are
+    no launches and are left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -84,7 +86,7 @@ def device_split(fn, reps: int = 10) -> dict:
             torch.cuda.synchronize()
         split = {}
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+            if e.device_type == DeviceType.CUDA and not e.name.startswith("td."):
                 ms = e.time_range.elapsed_us() / 1e3 / reps
                 split[e.name] = split.get(e.name, 0.0) + ms
         if sum(split.values()) > 0:

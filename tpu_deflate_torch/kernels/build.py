@@ -47,6 +47,9 @@ SIGNATURES = {
     "tokenize_hier_k1d_launch": [_P, _I, _P, _P, _P, _P, _I, _P],
     "tokenize_hier_k3d_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _P],
+    "farmatch_keys_launch": [_P, _P, _P, _I, _I, _P],
+    "farmatch_prev_launch": [_P, _P, _P, _I, _I, _P],
+    "farmatch_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -8,8 +8,9 @@ Four stages per lane, all lanes at once:
        windows take a far matcher built on stable sorts: the most recent
        occurrences of each position's 3-byte key (a chain of them) and of
        hashed longer keys are candidates, each probed, the winner
-       extended (``far_matcher="exact"``) or stitched from runs of
-       positions that verified 8 bytes at one distance (``"fast"``).
+       extended (``far_matcher="exact"``: the ``farmatch`` kernel on the
+       card) or stitched from runs of positions that verified 8 bytes at
+       one distance (``"fast"``).
        With ``lazy`` a match is dropped where the next position holds a
        strictly longer one;
   3.   greedy parse: the token starts are the positions reachable from 0
@@ -34,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from tpu_deflate_torch.config import DeflateConfig
+from tpu_deflate_torch.kernels.farmatch import far_match_batch
 from tpu_deflate_torch.kernels.match2 import MAX_WINDOW, match_bitplane_batch
 from tpu_deflate_torch.kernels.monotone import mono_scatter_add
 from tpu_deflate_torch.ops.header import chase_reach
@@ -242,6 +244,18 @@ def _key3(b: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return torch.where(idx + 3 <= n, key3, (1 << 24) + idx)
 
 
+def _far_match_plain(data: torch.Tensor, n: torch.Tensor, window: int,
+                     max_match: int, far_matcher: str = "exact"):
+    """The far matchers' torch glue on lanes data uint8[B, N] of lengths
+    n int32[B]: (dist, length) int64[B, N]; with ``"exact"`` the plain
+    version of ``far_match_batch``."""
+    b = data.to(torch.int64)
+    n64 = n.to(torch.int64)[:, None]
+    far = (_match_candidates_fast if far_matcher == "fast"
+           else _match_candidates_multi)
+    return far(b, _key3(b, n64), n64, window, max_match)
+
+
 def _match(data: torch.Tensor, n: torch.Tensor, config: DeflateConfig):
     """Stages 1+2 with the lazy deferral: (dist, length) [B, N] of lanes
     data uint8[B, N] of lengths n int32[B]."""
@@ -255,13 +269,12 @@ def _match_lanes(data: torch.Tensor, n: torch.Tensor, window: int,
                  lazy: bool):
     """``_match`` by the JAX package's switches: the sort-based far
     matcher where ``use_sort_matcher``, else the ``match2`` kernel, which
-    takes windows up to 256."""
-    if use_sort_matcher:
-        b = data.to(torch.int64)
-        n64 = n.to(torch.int64)[:, None]
-        far = (_match_candidates_fast if far_matcher == "fast"
-               else _match_candidates_multi)
-        dist, length = far(b, _key3(b, n64), n64, window, max_match)
+    takes windows up to 256.  The exact far matcher is the ``farmatch``
+    kernel off the CPU; the fast one is torch glue on any device."""
+    if use_sort_matcher and far_matcher != "fast" and data.device.type != "cpu":
+        dist, length = far_match_batch(data, n, window, max_match)
+    elif use_sort_matcher:
+        dist, length = _far_match_plain(data, n, window, max_match, far_matcher)
     elif window <= MAX_WINDOW:
         dist, length = match_bitplane_batch(data, n, window, max_match)
     else:
