@@ -360,11 +360,47 @@ def test_valid_streams_hold_what_they_name():
 
 
 def test_one_bit_literal_code_falls_back():
+    # the block falls back to the lane tokenizer, within the walk
     stream = _raw(b"a" * 6000 + corpus(3, 40), 9, zlib.Z_HUFFMAN_ONLY)
-    assert TF.inflate_foreign_device(stream, device="cpu") is None
-    # the caller's general pipeline decodes it
-    out, total, _ = TD._inflate_general(stream, device="cpu")
+    out, total, end = TF.inflate_foreign_device(stream, device="cpu")
     assert out[:total].tobytes() == b"a" * 6000 + corpus(3, 40)
+    # as the general pipeline decodes it
+    g_out, g_total, g_end = TD._inflate_general(stream, device="cpu")
+    assert (g_out[:g_total].tobytes(), g_end) == (out[:total].tobytes(), end)
+
+
+def test_the_walk_goes_on_after_a_one_bit_block():
+    """A block with a 1-bit literal code, a stored block, then a block
+    of longer codes whose matches reach back into the first's output."""
+    first = corpus(2, 2000) + bytes(6000)
+    then = corpus(2, 2000) + corpus(3, 2000)
+    co = zlib.compressobj(9, zlib.DEFLATED, -15, 8, zlib.Z_HUFFMAN_ONLY)
+    stream = co.compress(first) + co.flush(zlib.Z_FULL_FLUSH) + _raw(then, zdict=first)
+    lanes = []
+    lane_block = TF._lane_block
+    TF._lane_block = lambda *a: lanes.append(a[4]) or lane_block(*a)
+    try:
+        out, total, end = TF.inflate_foreign_device(stream + b"tail", device="cpu")
+    finally:
+        TF._lane_block = lane_block
+    assert out[:total].tobytes() == first + then and end == 8 * len(stream)
+    assert lanes == [0]  # the first block alone, from the stream's first token
+
+
+def test_a_walk_of_more_tokens_than_its_buffers():
+    """1-bit codes, a token a bit: past the buffers' token per 3 bits of
+    input, which the walk doubles and goes on."""
+    data = bytes(200000) + corpus(2, 3000)
+    sizes = []
+    lane_block = TF._lane_block
+    TF._lane_block = lambda *a: sizes.append(a[5][0].shape[0]) or lane_block(*a)
+    try:
+        out, total, _ = TF.inflate_foreign_device(_raw(data, 9, zlib.Z_HUFFMAN_ONLY),
+                                                  device="cpu")
+    finally:
+        TF._lane_block = lane_block
+    assert out[:total].tobytes() == data
+    assert len(sizes) >= 12 and sizes[-1] == 2 * sizes[0]
 
 
 def _bits(*fields) -> bytes:

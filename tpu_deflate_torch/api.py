@@ -97,7 +97,8 @@ def decompress(data: bytes, config: DeflateConfig = DeflateConfig(),
     lane; raises DeflateError on a corrupt stream."""
     if not config.decompress:
         raise ValueError("config disables decompress")
-    return zlib_decompress_device(data, config, device)
+    with span("td.api.decompress"):
+        return zlib_decompress_device(data, config, device)
 
 
 def compress_indexed(data: bytes, config: DeflateConfig = DeflateConfig(),
@@ -125,21 +126,25 @@ def decompress_indexed(stream: bytes, index, config: DeflateConfig = DeflateConf
     ValueError on a corrupt stream or an index that does not cover it,
     OverflowError on an index of no chunk (the JAX package's type), and
     the errors of ``_decode_lanes``."""
-    body = stream[2:-4]
-    index = np.asarray(index, dtype=np.int64)
-    offsets = np.concatenate([[0], np.cumsum(index)])
-    if offsets[-1] != len(body):
-        raise ValueError("index does not cover the stream body")
-    if len(index) == 0:  # the JAX package's batch pad overflows here
-        raise OverflowError("decompress_indexed: the index has no chunk")
-    starts = np.clip(offsets[:-1], 0, len(body))
-    outs, totals = _decode_lanes(body, starts, index,
-                                 max(int(index.max(initial=0)), 1), config, device)
-    keep = torch.arange(outs.shape[1], device=outs.device) < totals[:, None]
-    result = outs[keep].cpu().numpy().tobytes()
-    if zlib.adler32(result) != int.from_bytes(stream[-4:], "big"):
-        raise ValueError("Adler-32 mismatch")
-    return result
+    with span("td.api.decompress_indexed"):
+        body = stream[2:-4]
+        index = np.asarray(index, dtype=np.int64)
+        offsets = np.concatenate([[0], np.cumsum(index)])
+        if offsets[-1] != len(body):
+            raise ValueError("index does not cover the stream body")
+        if len(index) == 0:  # the JAX package's batch pad overflows here
+            raise OverflowError("decompress_indexed: the index has no chunk")
+        starts = np.clip(offsets[:-1], 0, len(body))
+        outs, totals = _decode_lanes(body, starts, index,
+                                     max(int(index.max(initial=0)), 1), config, device)
+        keep = torch.arange(outs.shape[1], device=outs.device) < totals[:, None]
+        with span("td.api.d2h"):
+            result = outs[keep].cpu().numpy().tobytes()
+        with span("td.checksum.adler"):
+            adler = zlib.adler32(result)
+        if adler != int.from_bytes(stream[-4:], "big"):
+            raise ValueError("Adler-32 mismatch")
+        return result
 
 
 def _decode_lanes(src: bytes, starts: np.ndarray, sizes: np.ndarray, width: int,
@@ -157,8 +162,9 @@ def _decode_lanes(src: bytes, starts: np.ndarray, sizes: np.ndarray, width: int,
     padded = np.zeros(len(src) + width, np.uint8)
     padded[: len(src)] = np.frombuffer(src, dtype=np.uint8)
     rows = np.lib.stride_tricks.sliding_window_view(padded, width)[starts]
-    ends = torch.from_numpy((8 * np.asarray(sizes)).astype(np.int32)).to(device)
-    rows = torch.from_numpy(rows).to(device)
+    with span("td.api.h2d"):
+        ends = torch.from_numpy((8 * np.asarray(sizes)).astype(np.int32)).to(device)
+        rows = torch.from_numpy(rows).to(device)
     chunk = config.chunk_size
 
     # stored / static lanes decode without code tables; a stream with
@@ -168,7 +174,8 @@ def _decode_lanes(src: bytes, starts: np.ndarray, sizes: np.ndarray, width: int,
     outs, totals, errs = decode_rows_batch(
         rows, ends, out_cap=chunk, tok_cap=chunk + 16, static_only=static_first,
     )
-    errs = errs.cpu().numpy()
+    with span("td.api.d2h"):
+        errs = errs.cpu().numpy()
     if static_first and (errs == ERR_DYNAMIC).any():
         if not allow_dynamic:
             raise DeflateError(
@@ -178,7 +185,8 @@ def _decode_lanes(src: bytes, starts: np.ndarray, sizes: np.ndarray, width: int,
         outs, totals, errs = decode_rows_batch(
             rows, ends, out_cap=chunk, tok_cap=chunk + 16, static_only=False,
         )
-        errs = errs.cpu().numpy()
+        with span("td.api.d2h"):
+            errs = errs.cpu().numpy()
     if (errs != 0).any():
         raise ValueError(f"inflate error codes {errs[errs != 0][:8]}")
     return outs, totals

@@ -122,12 +122,11 @@ def rev15(x: torch.Tensor) -> torch.Tensor:
 
 def code_rank(prefix: torch.Tensor, lim: torch.Tensor, rd: torch.Tensor):
     """Comparison decode of MSB-first 15-bit prefixes int64[S, P] against
-    each row's (lim, rd) int64[S, 16]: (code length, 16 where no code
-    matches; the length clipped to [1, 15]; rank)."""
-    cnt = torch.zeros_like(prefix)
-    for L in range(1, 16):
-        cnt += prefix < lim[:, L : L + 1]
-    nb = 16 - cnt
+    each row's (lim, rd) int64[S, 16], lim nondecreasing as
+    ``ops.header.canon_params`` makes it: (code length, 16 where no code
+    matches; the length clipped to [1, 15]; rank).  The length is one
+    more than the limits lim[1:] at most the prefix, found by one search."""
+    nb = 1 + torch.searchsorted(lim[:, 1:].contiguous(), prefix, right=True)
     nbc = nb.clamp(1, 15)
     return nb, nbc, (prefix >> (15 - nbc)) + torch.gather(rd, 1, nbc)
 

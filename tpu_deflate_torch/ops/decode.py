@@ -31,7 +31,7 @@ from tpu_deflate_torch.kernels.tokenize import (
     tokenize_static_batch,
 )
 from tpu_deflate_torch.kernels.tokenize_dyn import tokenize_dyn_batch
-from tpu_deflate_torch.ops.checksum import adler32_fold, adler32_state
+from tpu_deflate_torch.ops.checksum import adler32_fold_states, adler32_state
 from tpu_deflate_torch.ops.expand import expand_batch, pow2_at_least
 from tpu_deflate_torch.ops.foreign import expand_stream, inflate_foreign_device
 from tpu_deflate_torch.ops.header import (
@@ -43,6 +43,7 @@ from tpu_deflate_torch.ops.header import (
 )
 from tpu_deflate_torch.ref.inflate import DeflateError
 from tpu_deflate_torch.spec import tables as T
+from tpu_deflate_torch.utils.profiling import span
 
 
 def chunk_pwin(chunk: int) -> int:
@@ -216,10 +217,12 @@ def decode_rows_batch(rows: torch.Tensor, ends: torch.Tensor, out_cap: int,
     int32[B], errs int32[B]); ``static_only`` and ``starts`` as in
     ``tokenize_rows_batch``.  A stored block's bytes are copied from
     ``stored_rows`` (default rows), of the same shape."""
-    tk, ta, tb, tp, _tot, _pos, err = tokenize_rows_batch(
-        rows, ends, tok_cap, chunk_pwin(out_cap), static_only, starts)
+    with span("td.decode.tokenize", rows.device):
+        tk, ta, tb, tp, _tot, _pos, err = tokenize_rows_batch(
+            rows, ends, tok_cap, chunk_pwin(out_cap), static_only, starts)
     src = rows if stored_rows is None else stored_rows
-    out, total = expand_batch(src, tk, ta, tb, tp, out_cap)
+    with span("td.decode.expand", rows.device):
+        out, total = expand_batch(src, tk, ta, tb, tp, out_cap)
     return out, total, err
 
 
@@ -369,29 +372,34 @@ def _inflate_general(data, start_bit: int = 0, out_cap: int | None = None,
     raw = np.frombuffer(bytes(data), dtype=np.uint8)
     m = len(raw)
     m_pad = max(1 << 12, pow2_at_least(m))
-    arr = torch.from_numpy(np.pad(raw, (0, m_pad - m))).to(device)
+    with span("td.api.h2d"):
+        arr = torch.from_numpy(np.pad(raw, (0, m_pad - m))).to(device)
     cap = out_cap or max(1 << 12, pow2_at_least(4 * m))
     pwin = _pick_pwin(m_pad)
-    while True:
-        tk, ta, tb, tp, total, pos, err = tokenize(
-            arr, start_bit, cap + 16, pwin=pwin, static_only=static_only,
-            one_block=one_block)
-        if err == ERR_OVERFLOW or (err == ERR_OK and total > cap):
-            cap *= 2
-            if cap > 1 << 31:
-                raise ValueError("output too large")
-            continue
-        if err == ERR_DYNAMIC:
-            raise DeflateError(
-                "dynamic-Huffman block rejected: decoder compiled with "
-                "dynamic=False/low_lut (reference DYNAMIC flag, "
-                "deflate.py:25)"
-            )
-        if err != ERR_OK:
-            raise DeflateError(
-                f"corrupt stream: {ERR_NAMES.get(err, f'error code {err}')}"
-            )
-        return expand_stream(arr, tk, ta, tb, tp, total).cpu().numpy(), total, pos
+    with span("td.decode.tokenize", arr.device):
+        while True:
+            tk, ta, tb, tp, total, pos, err = tokenize(
+                arr, start_bit, cap + 16, pwin=pwin, static_only=static_only,
+                one_block=one_block)
+            if err == ERR_OVERFLOW or (err == ERR_OK and total > cap):
+                cap *= 2
+                if cap > 1 << 31:
+                    raise ValueError("output too large")
+                continue
+            if err == ERR_DYNAMIC:
+                raise DeflateError(
+                    "dynamic-Huffman block rejected: decoder compiled with "
+                    "dynamic=False/low_lut (reference DYNAMIC flag, "
+                    "deflate.py:25)"
+                )
+            if err != ERR_OK:
+                raise DeflateError(
+                    f"corrupt stream: {ERR_NAMES.get(err, f'error code {err}')}"
+                )
+            break
+    out = expand_stream(arr, tk, ta, tb, tp, total)
+    with span("td.api.d2h"):
+        return out.cpu().numpy(), total, pos
 
 
 def _shift_right_bits(data: bytes, k: int) -> bytes:
@@ -472,7 +480,9 @@ def zlib_decompress_device(data: bytes, config: DeflateConfig = DeflateConfig(),
     )
     trailer_at = (end_bit + 7) // 8
     expect = int.from_bytes(data[trailer_at : trailer_at + 4], "big")
-    got = _adler32(torch.from_numpy(out[:total]).to(device))
+    with span("td.api.h2d"):
+        again = torch.from_numpy(out[:total]).to(device)
+    got = _adler32(again)
     if got != expect:
         raise DeflateError(f"Adler-32 mismatch {got:#x} != {expect:#x}")
     return out[:total].tobytes()
@@ -483,7 +493,11 @@ def _adler32(data: torch.Tensor) -> int:
     chunk = 1 << 16
     n = data.shape[0]
     nchunks = max(1, -(-n // chunk))
-    rows = torch.nn.functional.pad(data, (0, nchunks * chunk - n))
-    lens = (n - chunk * torch.arange(nchunks, device=data.device)).clamp(0, chunk)
-    a, b = adler32_state(rows.reshape(nchunks, chunk), lens)
-    return adler32_fold(a, b, lens)
+    with span("td.checksum.adler"):
+        rows = torch.nn.functional.pad(data, (0, nchunks * chunk - n))
+        lens = (n - chunk * torch.arange(nchunks, device=data.device)).clamp(0, chunk)
+        a, b = adler32_state(rows.reshape(nchunks, chunk), lens)
+        fa, fb, _ = adler32_fold_states(a, b, lens)
+    # the first wait after the checksum: its scalars come after it on the stream
+    with span("td.api.d2h"):
+        return (int(fb) << 16) | int(fa)

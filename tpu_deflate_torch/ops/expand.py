@@ -16,6 +16,7 @@ from tpu_deflate_torch.kernels.expand3 import MAX_OUT_CAP as MAX_OUT_CAP3
 from tpu_deflate_torch.kernels.expand3 import expand_fused3
 from tpu_deflate_torch.kernels.resolve import resolve_roots
 from tpu_deflate_torch.kernels.tokenize import TK_LIT, TK_MATCH, TK_STORED
+from tpu_deflate_torch.utils.profiling import tally
 
 OTILE = 2048  # expand_fused2 takes rows whose length is a multiple of this
 
@@ -79,7 +80,8 @@ def expand_batch(rows, tk, ta, tb, tp, out_cap: int):
     if out_cap <= MAX_OUT_CAP3:
         return expand_fused3(rows, off, c1, tb, tp, total, out_cap), total
     live = torch.arange(tk.shape[1], device=tk.device) < tp[:, None]
-    any_stored = bool(((tk == TK_STORED) & live).any())
+    with tally("d2h"):
+        any_stored = bool(((tk == TK_STORED) & live).any())
     if not any_stored and out_cap % OTILE == 0 and out_cap <= MAX_OUT_CAP2:
         return expand_fused2(off, c1, tb, tp, total, out_cap), total
     val, parent, in_range = _expand_fields(rows, off, c1, tb, tp, total,
@@ -91,7 +93,9 @@ def expand_batch(rows, tk, ta, tb, tp, out_cap: int):
 def expand(data, tk, ta, tb, tp: int, out_cap: int):
     """Single-stream stage 2: data uint8[M], tk, ta, tb int32[K] and the
     token count -> (uint8[out_cap], total); see ``expand_batch``."""
-    tpt = torch.tensor([tp], dtype=torch.int32, device=tk.device)
+    with tally("h2d"):
+        tpt = torch.tensor([tp], dtype=torch.int32, device=tk.device)
     out, total = expand_batch(data[None], tk[None], ta[None], tb[None], tpt,
                               out_cap)
-    return out[0], int(total[0])
+    with tally("d2h"):
+        return out[0], int(total[0])

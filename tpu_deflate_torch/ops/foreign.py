@@ -10,9 +10,15 @@ device (a dynamic header's code lengths through ``visited_from_adv``, as
 first symbol.  The tokens accumulate in one buffer on the device, and the
 expansion runs once at the end.  The loop runs on the host, with one
 device-to-host read of each Huffman block's scalars; block types and a
-stored block's LEN/NLEN come from a host copy of the stream.  A stream
-that the tokenizer cannot serve (a literal/length code under 2 bits, a
-block longer than the window or than one token slab) reports FALLBACK,
+stored block's LEN/NLEN come from a host copy of the stream, and the
+header values read there go up to the card without a wait.  On a card a
+dynamic header's parse, some 300 small operations, is one CUDA graph
+captured once and replayed a block (``_HeaderGraph``).  A block with a
+literal/length code under 2 bits, which the tile-parallel tokenizer
+cannot serve, is tokenized again by the general pipeline's lane
+tokenizer (``tokenize_dyn_batch``, one lane walking its symbols in turn)
+under the same tables, and the walk goes on after it.  A stream with a
+block longer than the window or than one token slab reports FALLBACK,
 and the caller decodes it with the general pipeline (``ops.decode.
 _inflate_general``).
 
@@ -36,6 +42,7 @@ import numpy as np
 import torch
 
 from tpu_deflate_torch.kernels.chase1 import visited_from_adv
+from tpu_deflate_torch.kernels.monotone import mono_compact
 from tpu_deflate_torch.kernels.tokenize import (
     ERR_BAD_CODE,
     ERR_INPUT,
@@ -48,6 +55,7 @@ from tpu_deflate_torch.kernels.tokenize import (
 )
 from tpu_deflate_torch.kernels.tokenize_dyn import (
     MIN_LIT_LEN_FOREIGN,
+    tokenize_dyn_batch,
     tokenize_dyn_hier,
 )
 from tpu_deflate_torch.ops.expand import OTILE, expand, expand_batch, pow2_at_least
@@ -59,6 +67,7 @@ from tpu_deflate_torch.ops.header import (
 )
 from tpu_deflate_torch.ref.inflate import DeflateError
 from tpu_deflate_torch.spec import tables as T
+from tpu_deflate_torch.utils.profiling import count, span, tally
 
 SEG = 1 << 19  # output bytes per expansion segment
 WIN = 1 << 15  # RFC window carried between segments
@@ -76,10 +85,12 @@ def expand_segments(data: torch.Tensor, tk: torch.Tensor, ta: torch.Tensor,
     n = torch.where(tk == TK_LIT, 1, ta).to(torch.int64)
     off = torch.cumsum(n, 0) - n
     nseg = -(-out_total // SEG)
+    count("segments", nseg)
     edges = torch.searchsorted(
         off, SEG * torch.arange(nseg + 1, device=dev), right=False)
-    lo = edges.tolist()
-    bases = torch.cat([off, off.new_tensor([out_total])])[edges].tolist()
+    with tally("d2h"):
+        lo = edges.tolist()
+        bases = torch.cat([off, off.new_tensor([out_total])])[edges].tolist()
     out = torch.zeros(out_total, dtype=torch.uint8, device=dev)
     zeros = torch.zeros(WIN, dtype=torch.int32, device=dev)
     window = zeros
@@ -92,7 +103,7 @@ def expand_segments(data: torch.Tensor, tk: torch.Tensor, ta: torch.Tensor,
         tk2 = torch.cat([zeros, tk[sl]])[None]
         ta2 = torch.cat([window, ta[sl]])[None]
         tb2 = torch.cat([zeros, tb[sl]])[None]
-        tp2 = torch.tensor([tk2.shape[1]], dtype=torch.int32, device=dev)
+        tp2 = _upload([tk2.shape[1]], dev, torch.int32)
         seg, _ = expand_batch(rows, tk2, ta2, tb2, tp2, SEG_CAP)
         out[base:nxt] = seg[0, WIN : WIN + nxt - base]
     return out
@@ -127,19 +138,102 @@ def _peek(host: np.ndarray, pos: int, nbits: int) -> int:
             >> (pos & 7)) & ((1 << nbits) - 1)
 
 
+_STATIC_LENGTHS = np.array([*T.STATIC_LITLEN_LENGTHS, *T.STATIC_DIST_LENGTHS], np.int64)
+
+
+def _upload(values, dev, dtype=torch.int64) -> torch.Tensor:
+    """Host values onto dev without a wait for the stream: on a card from
+    pinned memory, which the copy keeps until it has run."""
+    t = torch.as_tensor(values, dtype=dtype)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def _dynamic_header(up: torch.Tensor, clw: torch.Tensor):
+    """A dynamic block's header from values on the device alone, so that
+    one CUDA graph can replay it (``_HeaderGraph``): up int64[25] holds
+    the code-length code's 19 lengths, the code lengths' first bit within
+    their byte, HLIT + HDIST, the output bytes before the block, HLIT,
+    HDIST and the code lengths' bit position; clw uint8[1, CLW / 8 + 16]
+    is the stream from the code lengths' byte on.  Returns (tab int64[1,
+    TAB_W], min_len, hdr_ok, start int64[1], the bit of the first
+    symbol)."""
+    dev = up.device
+    clim, crd, csym, cover = canon_params(up[None, :19], 19)
+    lengths, end_next, cl_ok = decode_cl_lengths(
+        clw.to(torch.int64), up[19:20], up[20:21], clim, crd, csym, win=CLW,
+        reach_fn=cl_reach)
+    hlit, hdist = up[22:23], up[23:24]
+    lit = torch.where(torch.arange(MAX_SYMS, device=dev) < hlit, lengths, 0)[:, :288]
+    d = torch.arange(32, device=dev)
+    dist = torch.where(d < hdist, lengths[:, (hlit + d).clamp(0, MAX_SYMS - 1)], 0)
+    start = up[24:25] + end_next
+    tab, min_len, trees_ok = pack_block_tab(lit, dist, start & 7, up[21:22])
+    return tab, min_len, cl_ok & ~cover & trees_ok, start
+
+
+class _HeaderGraph:
+    """``_dynamic_header`` captured once on a card as one CUDA graph and
+    replayed a block: one launch from the host in place of some 300.  It
+    reads its values from, and returns them at, fixed addresses; each
+    replay launches ``visited_from_adv`` and ``mono_compact`` once, and
+    counts them as their launchers do."""
+
+    def __init__(self, dev: torch.device):
+        self.up = torch.zeros(25, dtype=torch.int64, device=dev)
+        self.clw = torch.zeros(1, CLW // 8 + 16, dtype=torch.uint8, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):  # a warm-up loads the kernels
+            _dynamic_header(self.up, self.clw)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        counted = [k.launches for k in _GRAPH_KERNELS]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):  # a capture launches nothing
+            self.out = _dynamic_header(self.up, self.clw)
+        for k, n in zip(_GRAPH_KERNELS, counted):
+            k.launches = n
+
+    def __call__(self, up: np.ndarray, clw: torch.Tensor):
+        self.up.copy_(torch.from_numpy(up).pin_memory(), non_blocking=True)
+        self.clw.copy_(clw)
+        self.graph.replay()
+        for k in _GRAPH_KERNELS:
+            k.launches += 1
+        return self.out
+
+
+# the hand kernels a replay launches once each, bound here so that their
+# counters are found whatever later stands in for their names
+_GRAPH_KERNELS = (visited_from_adv, mono_compact)
+_GRAPHS: dict = {}  # card index -> its _HeaderGraph
+
+
+def _header_graph(dev: torch.device) -> _HeaderGraph:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _GRAPHS:
+        with torch.cuda.device(index):
+            _GRAPHS[index] = _HeaderGraph(torch.device("cuda", index))
+    return _GRAPHS[index]
+
+
 def _huffman_block(arr, host, pos: int, out_total: int, end_bit: int):
     """Parse the Huffman block header at bit pos (static or dynamic), then
     tokenize its symbols in a PW-bit window from the byte of the first
-    symbol.  Returns the tokenizer's (tk, ta, tb, ...) and the host
-    scalars (hdr_ok, min_len, kerr, ntok, outp, endp, base2, small) of
-    the one device-to-host read."""
+    symbol.  Returns the tokenizer's (tk, ta, tb, ...), the host scalars
+    (hdr_ok, min_len, kerr, ntok, outp, endp, base2, small) of the one
+    device-to-host read, which is tallied on the open span, and the
+    block's table and first symbol's bit on the device.  The
+    header's host values go up without a wait; on a card a dynamic
+    header's parse is one replay of ``_HeaderGraph``."""
     dev = arr.device
     i64 = torch.int64
     if _peek(host, pos + 1, 2) == 1:
-        lit = torch.as_tensor(T.STATIC_LITLEN_LENGTHS, dtype=i64, device=dev)[None]
-        dist = torch.as_tensor(T.STATIC_DIST_LENGTHS, dtype=i64, device=dev)[None]
-        start = torch.tensor([pos + 3], dtype=i64, device=dev)
-        hdr_ok = torch.ones(1, dtype=torch.bool, device=dev)
+        up = _upload(np.append(_STATIC_LENGTHS, [pos + 3, out_total]), dev)
+        start = up[320:321]
+        tab, min_len, hdr_ok = pack_block_tab(up[None, :288], up[None, 288:320],
+                                              start & 7, up[321:])
     else:
         hlit = _peek(host, pos + 3, 5) + 257
         hdist = _peek(host, pos + 8, 5) + 1
@@ -147,23 +241,14 @@ def _huffman_block(arr, host, pos: int, out_total: int, end_bit: int):
         cl = np.zeros(19, np.int64)
         for j in range(hclen):
             cl[T.CODE_LENGTH_ORDER[j]] = _peek(host, pos + 17 + 3 * j, 3)
-        clim, crd, csym, cover = canon_params(torch.from_numpy(cl).to(dev)[None], 19)
         cl_pos = pos + 17 + 3 * hclen
+        up = np.append(cl, [cl_pos & 7, hlit + hdist, out_total, hlit, hdist, cl_pos])
         at = cl_pos >> 3  # the code lengths' bits, from a byte boundary
-        lengths, end_next, cl_ok = decode_cl_lengths(
-            arr[None, at : at + CLW // 8 + 16].to(i64),
-            torch.tensor([cl_pos & 7], dtype=i64, device=dev),
-            torch.tensor([hlit + hdist], dtype=i64, device=dev), clim, crd, csym,
-            win=CLW, reach_fn=cl_reach)
-        sidx = torch.arange(MAX_SYMS, device=dev)
-        lit = torch.where(sidx < hlit, lengths, 0)[:, :288]
-        d = torch.arange(32, device=dev)
-        dist = torch.where(d < hdist, lengths[:, (hlit + d).clamp(0, MAX_SYMS - 1)], 0)
-        start = cl_pos + end_next
-        hdr_ok = cl_ok & ~cover
-    tab, min_len, trees_ok = pack_block_tab(
-        lit, dist, start & 7, torch.tensor([out_total], dtype=i64, device=dev))
-    hdr_ok = hdr_ok & trees_ok
+        clw = arr[None, at : at + CLW // 8 + 16]
+        if dev.type == "cuda":
+            tab, min_len, hdr_ok, start = _header_graph(dev)(up, clw)
+        else:
+            tab, min_len, hdr_ok, start = _dynamic_header(_upload(up, dev), clw)
     base2 = start >> 3
     # the window's first byte stays inside the padded stream, as a JAX
     # dynamic_slice clamps it
@@ -174,22 +259,57 @@ def _huffman_block(arr, host, pos: int, out_total: int, end_bit: int):
                             tab.to(torch.int32), (start & 7).to(torch.int32), PW)
     scal = torch.cat([hdr_ok.to(i64), min_len.to(i64),
                       *(r.to(i64) for r in res[3:]), base2, (end_rel <= PW - 64).to(i64)])
-    hdr_ok, min_len, ntok, outp, endp, kerr, base2, small = scal.tolist()
-    return res[:3], (bool(hdr_ok), min_len, kerr, ntok, outp, endp, base2, bool(small))
+    with tally("d2h"):
+        hdr_ok, min_len, ntok, outp, endp, kerr, base2, small = scal.tolist()
+    return (res[:3], (bool(hdr_ok), min_len, kerr, ntok, outp, endp, base2, bool(small)),
+            tab, start)
+
+
+def _lane_block(arr, end_bit: int, tab, start, tp: int, bufs, pwin: int):
+    """Tokenize one Huffman block under its table tab int64[1, TAB_W]
+    from its first symbol's bit start int64[1] with the lane tokenizer
+    (``tokenize_dyn_batch``), which serves codes of any length, after the
+    first tp tokens of bufs (tk, ta, tb int32[tok_cap]).  Returns the
+    buffers and (tokens, output bytes, end bit, error), counted from the
+    stream's start, from one device-to-host read tallied on the open
+    span."""
+    dev = arr.device
+    i32 = torch.int32
+    lane = _upload([end_bit, -1, tp], dev, i32)
+    res = tokenize_dyn_batch(arr[None], lane[0:1], tab.to(i32), start.to(i32), lane[1:2],
+                             lane[2:3], bufs[0].shape[0], pwin,
+                             into=tuple(b[None] for b in bufs))
+    with tally("d2h"):
+        ntok, total, pos, err = torch.cat(res[3:7]).tolist()
+    return tuple(t[0] for t in res[:3]), (ntok, total, pos, err)
+
+
+def _lane_pwin(m_pad: int) -> int:
+    """The lane tokenizer's pass window for a stream padded to m_pad
+    bytes, as the general pipeline picks it (``ops.decode._pick_pwin``)."""
+    return min(pow2_at_least(8 * m_pad), 1 << 17)
 
 
 def _foreign_loop(arr: torch.Tensor, host: np.ndarray, start_bit: int,
-                  end_bit: int, tok_cap: int):
+                  end_bit: int, tok_cap: int, pwin: int):
     """Walk the blocks of the stream from start_bit: (mode, err, tk, ta,
-    tb int32[tok_cap], tp, out_total, pos)."""
+    tb int32[K], tp, out_total, pos), the buffers of tok_cap tokens
+    doubled while a block could overrun them; pwin is the lane tokenizer's
+    pass window.  Counts on the open span the Huffman blocks walked (one
+    device-to-host read each), those of them that the lane tokenizer
+    walked again (one more read each), the stored blocks, and whether the
+    walk reports FALLBACK; each wait for the card is tallied there too."""
     dev = arr.device
     tk, ta, tb = (torch.zeros(tok_cap, dtype=torch.int32, device=dev)
                   for _ in range(3))
     stored = []  # (slot, LEN, byte offset) of each stored block's token
     pos, mode, tp, total, err, it = start_bit, RUNNING, 0, 0, 0, 0
+    huffman = lane = 0
     max_it = max((end_bit - start_bit) // 32 + 8, 8)
-    while (mode == RUNNING and pos < end_bit and it < max_it
-           and tp < tok_cap - (PW // 8 + 8192)):
+    while mode == RUNNING and pos < end_bit and it < max_it:
+        if tp >= tk.shape[0] - (PW // 8 + 8192):
+            # codes of a bit or two outrun a token per 3 bits of input
+            tk, ta, tb = (torch.cat([t, torch.zeros_like(t)]) for t in (tk, ta, tb))
         bfinal, btype = _peek(host, pos, 1), _peek(host, pos + 1, 2)
         if btype == 0:
             p = (pos + 3 + 7) & ~7
@@ -202,27 +322,44 @@ def _foreign_loop(arr: torch.Tensor, host: np.ndarray, start_bit: int,
         elif btype == 3:
             mode, err = FAILED, ERR_METHOD
         else:
-            toks, (hdr_ok, min_len, kerr, ntok, outp, endp, base2, small) = \
+            huffman += 1
+            toks, (hdr_ok, min_len, kerr, ntok, outp, endp, base2, small), tab, start = \
                 _huffman_block(arr, host, pos, total, end_bit)
-            fallback = (min_len < MIN_LIT_LEN_FOREIGN
-                        or (kerr == ERR_INPUT and not small)
-                        or kerr == ERR_OVERFLOW)
-            ok = hdr_ok and kerr == 0 and not fallback
-            if ok:
-                for buf, t in zip((tk, ta, tb), toks):
-                    buf[tp : tp + ntok] = t[0, :ntok]
-                pos, tp, total = 8 * base2 + endp, tp + ntok, total + outp
+            fallback = False
+            if hdr_ok and min_len < MIN_LIT_LEN_FOREIGN:
+                # a 1-bit literal/length code: the lane tokenizer's block
+                lane += 1
+                (tk, ta, tb), (tp_after, total_after, end, kerr) = _lane_block(
+                    arr, end_bit, tab, start, tp, (tk, ta, tb), pwin)
+                fallback = kerr == ERR_OVERFLOW  # a block past the buffers
+                ok = kerr == 0
+                if ok:
+                    pos, tp, total = end, tp_after, total_after
+            else:
+                # a bad header with such a code is the general pipeline's
+                fallback = (min_len < MIN_LIT_LEN_FOREIGN
+                            or (kerr == ERR_INPUT and not small)
+                            or kerr == ERR_OVERFLOW)
+                ok = hdr_ok and kerr == 0 and not fallback
+                if ok:
+                    for buf, t in zip((tk, ta, tb), toks):
+                        buf[tp : tp + ntok] = t[0, :ntok]
+                    pos, tp, total = 8 * base2 + endp, tp + ntok, total + outp
             mode = (FALLBACK if fallback else
                     (DONE if bfinal else RUNNING) if ok else FAILED)
             if not (ok or fallback):
                 err = ERR_BAD_CODE if not hdr_ok else kerr
         it += 1
     if stored:
-        slot, ln, off = torch.tensor(stored, dtype=torch.int64).T.to(dev)
+        slot, ln, off = _upload(stored, dev).T
         tk[slot], ta[slot], tb[slot] = TK_STORED, ln.to(torch.int32), off.to(torch.int32)
     # running out of input without BFINAL is a truncated stream
     if mode == RUNNING:
         mode, err = FAILED, err or ERR_INPUT
+    count("huffman_blocks", huffman)
+    count("lane_blocks", lane)
+    count("stored_blocks", len(stored))
+    count("fallback", int(mode == FALLBACK))
     return mode, err, tk, ta, tb, tp, total, pos
 
 
@@ -236,29 +373,36 @@ def inflate_foreign_device(data, start_bit: int = 0, device="cuda"):
     m = len(raw)
     m_pad = max(1 << 12, pow2_at_least(m))
     host = np.pad(raw, (0, m_pad - m + WINB + 1200))
-    arr = torch.from_numpy(host).to(device)
+    with span("td.api.h2d"):
+        arr = torch.from_numpy(host).to(device)
     # the JAX package's capacity: a token per 3 bits of the padded input
     # and two token slabs of slack for the loop's guard
     tok_cap = (8 * m_pad) // 3 + 2 * (PW // 8 + 8192) + 16384
     tok_cap = -(-tok_cap // 1024) * 1024
-    mode, err, tk, ta, tb, tp, total, pos = _foreign_loop(
-        arr, host, start_bit, 8 * m, tok_cap)
+    with span("td.decode.tokenize", arr.device):
+        mode, err, tk, ta, tb, tp, total, pos = _foreign_loop(
+            arr, host, start_bit, 8 * m, tok_cap, _lane_pwin(m_pad))
     if mode == FALLBACK:
         return None
     if mode != DONE:
         raise DeflateError(
             f"corrupt stream: {ERR_NAMES.get(err, f'error code {err}')}")
-    return expand_stream(arr, tk, ta, tb, tp, total).cpu().numpy(), total, pos
+    out = expand_stream(arr, tk, ta, tb, tp, total)
+    with span("td.api.d2h"):
+        return out.cpu().numpy(), total, pos
 
 
 def expand_stream(arr: torch.Tensor, tk: torch.Tensor, ta: torch.Tensor,
                   tb: torch.Tensor, tp: int, total: int) -> torch.Tensor:
     """A whole stream's tokens (the first tp of tk, ta, tb int32[K]) ->
     uint8 bytes, at least total of them: one row of a power of two up to
-    SEG + 256 bytes, else segments (``expand_segments``)."""
-    if total > SEG + 256:
-        return expand_segments(arr, tk[:tp], ta[:tp], tb[:tp], total)
-    live = max(tp, 1)  # the expanders index a row of at least one slot
-    out, _ = expand(arr, tk[:live], ta[:live], tb[:live], tp,
-                    max(1 << 12, pow2_at_least(total)))
-    return out
+    SEG + 256 bytes, else segments (``expand_segments``), counted on the
+    ``td.decode.expand`` span."""
+    with span("td.decode.expand", arr.device):
+        if total > SEG + 256:
+            return expand_segments(arr, tk[:tp], ta[:tp], tb[:tp], total)
+        count("segments", 1)
+        live = max(tp, 1)  # the expanders index a row of at least one slot
+        out, _ = expand(arr, tk[:live], ta[:live], tb[:live], tp,
+                        max(1 << 12, pow2_at_least(total)))
+        return out

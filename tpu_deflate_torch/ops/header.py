@@ -59,22 +59,21 @@ def canon_params(lengths: torch.Tensor, n_sym: int):
     i64 = torch.int64
     valid = (lengths > 0) & (lengths <= 15)
     Lc = lengths.clamp(0, 15)
+    # count[0] stays 0: a length outside [1, 15] adds nothing
     count = torch.zeros(B, 16, dtype=i64, device=dev).scatter_add(
         1, Lc, valid.to(i64))
-    count[:, 0] = 0
-    next_code = torch.zeros(B, 16, dtype=i64, device=dev)
-    for L in range(1, 16):
-        next_code[:, L] = (next_code[:, L - 1] + count[:, L - 1]) << 1
+    # next_code[L] = (next_code[L - 1] + count[L - 1]) << 1, unrolled: the
+    # sum over k < L of count[k] << (L - k)
+    ln = torch.arange(16, device=dev)
+    gap = ln[:, None] - ln
+    next_code = torch.where(gap > 0, count[:, None, :] << gap.clamp(min=0), 0).sum(2)
     before = torch.cumsum(count, 1) - count
-    shift = (15 - torch.arange(16, device=dev)).clamp(0, 15)
-    lim = torch.where(torch.arange(16, device=dev) > 0,
-                      (next_code + count) << shift, 0)
+    lim = torch.where(ln > 0, (next_code + count) << (15 - ln), 0)
     lim = torch.cummax(lim, 1).values
     rd = before - next_code
     kraft = torch.where(valid, 1 << (15 - Lc), 0).sum(1)
     # rank: codes shorter, then codes of the same length at a smaller symbol
-    eq = (Lc[:, None, :] == torch.arange(1, 16, device=dev)[None, :, None]) \
-        & valid[:, None, :]
+    eq = (Lc[:, None, :] == ln[1:, None]) & valid[:, None, :]
     within = torch.where(eq, torch.cumsum(eq, 2) - eq.to(i64), 0).sum(1)
     rank = torch.gather(before, 1, Lc) + within
     slot = torch.where(valid & (rank < n_sym), rank, n_sym)
@@ -170,8 +169,12 @@ def pack_block_tab(lit_lengths: torch.Tensor, dist_lengths: torch.Tensor,
     dev = lit_lengths.device
     if out_base is None:
         out_base = torch.zeros(B, dtype=torch.int64, device=dev)
-    llim, lrd, lsym, lover = canon_params(lit_lengths, 288)
-    dlim, drd, dsym, dover = canon_params(dist_lengths, 32)
+    # both trees in one call: the distance lengths padded with zeros, of
+    # which the first 32 ranks are those of their own 32 symbols
+    dpad = torch.nn.functional.pad(dist_lengths, (0, 288 - dist_lengths.shape[1]))
+    lim, rd, sym, over = canon_params(torch.cat([lit_lengths, dpad]), 288)
+    llim, lrd, lsym, lover = lim[:B], rd[:B], sym[:B], over[:B]
+    dlim, drd, dsym, dover = lim[B:], rd[B:], sym[B:, :32], over[B:]
     min_len = torch.where(lit_lengths > 0, lit_lengths, 99).amin(1)
     symp1 = torch.where((lsym >= 0) & (lsym <= 287), lsym + 1, 0)
     dsymp1 = torch.where((dsym >= 0) & (dsym <= 29), dsym + 1, 0)

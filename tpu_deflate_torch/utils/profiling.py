@@ -1,15 +1,16 @@
 """Spans on the profiler's clock, throughput counters for stages, and a
 device trace.
 
-Spans mark the layer boundaries of the compress path (``td.api.*``,
-``td.encode.*``, ``td.checksum.*``).  They record only while a
-``torch.profiler`` is recording; otherwise ``span`` returns one shared
-no-op context, so an untraced call pays a flag test a span:
+Spans mark the layer boundaries of the compress and decompress paths
+(``td.api.*``, ``td.encode.*``, ``td.decode.*``, ``td.checksum.*``).  They
+record only while a ``torch.profiler`` is recording; otherwise ``span``
+returns one shared no-op context, so an untraced call pays a flag test a
+span:
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         compress_indexed(data, device="cuda")
-    for s in spans():   # name, id, parent, root, t0_ns, t1_ns, card_ms
+    for s in spans():   # name, id, parent, root, t0_ns, t1_ns, card_ms, counts
         ...
     prof.export_chrome_trace("trace.json")   # the spans beside the kernels
 
@@ -19,6 +20,13 @@ is given a CUDA device it records a timing event on the current stream at
 each end, and ``card_ms`` is the stretch of the stream between them:
 launch gaps included, not the card's busy time.  Spans live in a bounded
 buffer of this process, as the profiler's own state does.
+
+``count(key, n)`` adds n to the innermost open span's ``counts[key]``, and
+``tally(kind)`` adds the host nanoseconds of its body there to
+``counts[kind + "_ns"]`` and one to ``counts[kind + "_n"]``: work done
+inside a span, and waits too many for a span each (one a block of a
+stream), are read off the span.  Without a profiler both are the flag
+test alone.
 
     prof = Profiler(device="cuda")
     with prof.stage("encode", nbytes=len(data)):
@@ -101,7 +109,8 @@ class Span:
     """One recorded span: host times from ``time.perf_counter_ns``;
     ``card_ms`` the stream's stretch between its events, None without a
     card.  ``root`` is the id of the outermost span around it (its own
-    where it has no parent)."""
+    where it has no parent).  ``counts`` holds what ``count`` and
+    ``tally`` added while it was the innermost open span."""
 
     name: str
     id: int
@@ -110,6 +119,7 @@ class Span:
     t0_ns: int
     t1_ns: int
     card_ms: float | None = None
+    counts: dict = field(default_factory=dict)
     _stretch: _Stretch | None = field(default=None, repr=False, compare=False)
 
     @property
@@ -121,10 +131,12 @@ class _Recording:
     """An open span: its place among the open spans, its annotation in
     the profiler and its stretch."""
 
-    __slots__ = ("name", "device", "id", "parent", "root", "token", "fn", "stretch")
+    __slots__ = ("name", "device", "id", "parent", "root", "token", "fn", "stretch",
+                 "counts")
 
     def __init__(self, name: str, device):
         self.name, self.device = name, device
+        self.counts = {}
 
     def __enter__(self):
         self.id = next(_IDS)
@@ -141,7 +153,7 @@ class _Recording:
         _OPEN.reset(self.token)
         s = self.stretch
         _BUFFER.append(Span(self.name, self.id, self.parent, self.root, s.t0_ns, s.t1_ns,
-                            _stretch=s))
+                            counts=self.counts, _stretch=s))
         return False
 
 
@@ -152,6 +164,45 @@ def span(name: str, device=None):
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _Recording(name, device)
+
+
+def count(key: str, n=1) -> None:
+    """Add n to ``counts[key]`` of the innermost open span while a
+    ``torch.profiler`` is recording; nothing otherwise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    inner = _OPEN.get()
+    if inner is not None:
+        inner.counts[key] = inner.counts.get(key, 0) + n
+
+
+class _Tally:
+    """Adds the host nanoseconds of its body, and one, to two counts."""
+
+    __slots__ = ("kind", "t0_ns")
+
+    def __init__(self, kind: str):
+        self.kind = kind
+
+    def __enter__(self):
+        self.t0_ns = time.perf_counter_ns()
+
+    def __exit__(self, *exc):
+        count(self.kind + "_ns", time.perf_counter_ns() - self.t0_ns)
+        count(self.kind + "_n")
+        return False
+
+
+def tally(kind: str):
+    """A context that adds the host nanoseconds of its body to
+    ``counts[kind + "_ns"]``, and one to ``counts[kind + "_n"]``, of the
+    innermost open span while a ``torch.profiler`` is recording (``"d2h"``:
+    a wait for the card's scalars; ``"h2d"``: an upload from pageable
+    memory, which waits for the stream); the shared no-op context
+    otherwise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Tally(kind)
 
 
 def spans() -> list:
