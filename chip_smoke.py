@@ -41,7 +41,14 @@ Phases, each of which raises on failure:
                zeros and on one row of 1 MiB, each timed beside its plain
                version, on the same short lanes at (300, 12), (1024, 258)
                and (32768, 258), and its launches and the match stage's
-               (at most 40); the bit-pack on the dynamic path's entries, on
+               (at most 40); the dynamic trees (dyn_trees_batch) on
+               FULL_WINDOW's 128 corpus lanes and, one by one and as one
+               batch, on the hand-built lanes of tpu_deflate_torch/lanes.py
+               (no token, one literal, literals alone, the repair's 48
+               rounds run out, a clipped code-length tree, a tie with the
+               static trees), with the plain version's device time and
+               FULL_WINDOW's emit stage's launches; the bit-pack on the
+               dynamic path's entries, on
                the encoder's entries over zeros at max_match 258, on
                seeded edge lanes (dead head and tail, no live entry, runs
                over slabs), on the main path's batch with its last lane
@@ -253,6 +260,7 @@ OWN_PATH = {
     "expand_fused2": "stream", "resolve_roots": "stream_stored_mix",
     "ent_from_phi": "foreign", "visited_from_adv": "foreign",
     "tokenize_dyn_hier": "foreign", "far_match_batch": "full_window",
+    "dyn_trees_batch": "dynamic",
 }
 
 
@@ -283,6 +291,27 @@ def work_far(args, outs):
     chunks, lens, _, _ = args
     dist, length = outs
     return nbytes(chunks, lens) + 8 * dist.numel(), 6 * dist.numel() + int(length.sum())
+
+
+def work_trees(args, outs):
+    """A start flag a position, the symbols of each token (and the distance
+    of each match) read, the tables and header written; an operation a
+    token, and a pass over every length at every level of the sweeps."""
+    start, lsym, _ = args
+    tokens = int(start.sum())
+    matches = int((start & (lsym >= 257)).sum())
+    return (start.numel() + 8 * (tokens + matches) + nbytes(*outs),
+            tokens + matches + start.shape[0] * 316 * 28)
+
+
+def trees_plain(start, litlen_sym, dsym):
+    """``_dynamic_trees_plain`` on the kernel's arguments: a start is a
+    match where its symbol is a length code; the extra bits, alike under
+    either tree, left out."""
+    from tpu_deflate_torch.ops import encode as E
+
+    return E._dynamic_trees_plain(start, start & (litlen_sym >= 257), litlen_sym,
+                                  dsym, 0, 0)
 
 
 def work_scatter(args, outs):
@@ -631,7 +660,7 @@ SHARD_RUNS = (
      ("match_bitplane_batch", "mono_scatter_add", "tokenize_static_batch",
       "expand_fused3")),
     ("sharded_dynamic", {"dynamic_encode": True}, PIN_DYNAMIC,
-     ("match_bitplane_batch", "mono_scatter_add", "mono_compact",
+     ("match_bitplane_batch", "dyn_trees_batch", "mono_scatter_add", "mono_compact",
       "tokenize_dyn_batch", "expand_fused3")),
     ("sharded_long", {"chunk_size": 1 << 20}, None,
      ("match_bitplane_batch", "mono_scatter_add", "tokenize_static_batch",
@@ -652,7 +681,14 @@ def kernel_sites() -> list:
     """(call site's module, name, wrapper, plain version) of every kernel:
     the wrapper carries the launch count, and the port's paths look the
     kernel up in the call site's module, where a capture sees each call."""
-    from tpu_deflate_torch.kernels import chase1, expand2, expand3, farmatch, match2
+    from tpu_deflate_torch.kernels import (
+        chase1,
+        dyntrees,
+        expand2,
+        expand3,
+        farmatch,
+        match2,
+    )
     from tpu_deflate_torch.kernels import monotone, resolve, tokenize, tokenize_dyn
     from tpu_deflate_torch.ops import decode as D
     from tpu_deflate_torch.ops import encode as E
@@ -664,6 +700,7 @@ def kernel_sites() -> list:
         (E, "match_bitplane_batch", match2.match_bitplane_batch,
          match2.match_bitplane_plain),
         (E, "far_match_batch", farmatch.far_match_batch, E._far_match_plain),
+        (E, "dyn_trees_batch", dyntrees.dyn_trees_batch, trees_plain),
         (E, "mono_scatter_add", monotone.mono_scatter_add,
          monotone.mono_scatter_add_plain),
         (H, "mono_compact", monotone.mono_compact, monotone.mono_compact_plain),
@@ -890,6 +927,7 @@ def main() -> None:
     from tpu_deflate_torch.kernels.expand2 import TILE as E2_TILE
     from tpu_deflate_torch.kernels.expand2 import expand_fused2, expand_fused2_plain
     from tpu_deflate_torch.kernels.expand3 import expand_fused3, expand_fused3_plain
+    from tpu_deflate_torch.kernels.dyntrees import dyn_trees_batch
     from tpu_deflate_torch.kernels.farmatch import far_match_batch
     from tpu_deflate_torch.kernels.match2 import (
         match_bitplane_batch,
@@ -1044,6 +1082,14 @@ def main() -> None:
 
         return call
 
+    # the dynamic trees' arguments in FULL_WINDOW's encode of the 8 MiB
+    trees_in = []
+    orig = capture(E, "dyn_trees_batch", trees_in)
+    E.encode_blocks_batch(chunks, lens, finals, FULL_WINDOW)
+    E.dyn_trees_batch = orig
+    require(len(trees_in) == 1 and trees_in[0][0].shape == (B, chunk),
+            f"{len(trees_in)} dyn_trees_batch calls in FULL_WINDOW's encode")
+
     tokenize_args = (rows, ends, tok_cap, pwin)
     dyn_args = (drows, dends, prep["tab"], starts, status,
                 torch.zeros_like(starts), tok_cap, pwin)
@@ -1058,6 +1104,10 @@ def main() -> None:
          "none (tpu_deflate/ops/encode.py:162 _match_candidates_multi, jnp glue)",
          far_match_batch, E._far_match_plain,
          (chunks, lens, FULL_WINDOW.window, FULL_WINDOW.max_match), work_far, None),
+        ("dyn_trees_batch", "dyntrees.cu",
+         "none (tpu_deflate/ops/encode.py:515 _assign_code_lengths_jax, :589, :683 "
+         "and the choice in _encode_emissions, jnp glue)",
+         dyn_trees_batch, trees_plain, trees_in[0], work_trees, None),
         ("tokenize_static_batch", "tokenize.cu",
          "tpu_deflate/kernels/tokenize.py:469",
          tokenize_static_batch, tokenize_static_plain, tokenize_args,
@@ -1241,6 +1291,44 @@ def main() -> None:
         + ", ".join(f"{k[:60]} {v:.0f}" for k, v in sorted(per_call.items()))
         + f"); FULL_WINDOW's match stage with the lazy step {sum(stage.values()):.0f} "
         f"ops, device {fmt_ms(stage_ms)} on {name}, {smi}")
+
+    # the dynamic trees on the hand-built lanes, one by one and as one batch
+    # (each lane's positions padded with no start); the plain version's
+    # device time on FULL_WINDOW's 128 corpus lanes; the launches of
+    # FULL_WINDOW's emit stage
+    from tpu_deflate_torch import lanes as L
+
+    edge = [L.tree_edge_lane(t) for t in L.TREE_EDGE_LANES]
+    uses = []
+    for tname, (st, ls, ds) in zip(L.TREE_EDGE_LANES, edge):
+        targs = tuple(torch.from_numpy(x)[None].to(dev) for x in (st, ls, ds))
+        got = dyn_trees_batch(*targs)
+        err = max_abs_err(got, trees_plain(*targs))
+        require(err == 0, f"dyn_trees_batch differs from plain on the lane {tname} "
+                f"by {err}")
+        uses.append(bool(got[0][0]))
+    require(uses == [False, False, True, False, True, False],
+            f"dynamic trees chosen on the hand-built lanes: {uses}")
+    width = max(len(x[0]) for x in edge) + 3
+    targs = [torch.zeros(len(edge), width, dtype=dt) for dt in (torch.bool, torch.int64,
+                                                                 torch.int64)]
+    for r, lane in enumerate(edge):
+        for t, x in zip(targs, lane):
+            t[r, : len(x)] = torch.from_numpy(x)
+    targs = tuple(t.to(dev) for t in targs)
+    err = max_abs_err(dyn_trees_batch(*targs), trees_plain(*targs))
+    require(err == 0, f"dyn_trees_batch differs from plain on the hand-built lanes "
+            f"as one batch by {err}")
+    tplain = device_ms(lambda: trees_plain(*trees_in[0]))
+    emit_args = (chunks, lens, finals, *E._match(chunks, lens, FULL_WINDOW), True)
+    emit = device_launches(lambda: E._encode_emissions(*emit_args), 3)
+    emit_ms = device_ms(lambda: E._encode_emissions(*emit_args))
+    log(f"kernel dyn_trees_batch: equal to plain on the hand-built lanes "
+        f"{list(L.TREE_EDGE_LANES)}, one by one (dynamic trees on {uses}) and as "
+        f"one batch of {tuple(targs[0].shape)}; the plain version's device time on "
+        f"FULL_WINDOW's 128 corpus lanes {fmt_ms(tplain)}; FULL_WINDOW's emit stage launches "
+        f"{sum(emit.values()):.0f} device ops, device {fmt_ms(emit_ms)}, on {name}, "
+        f"{smi}")
 
     # the bit-pack on the dynamic path's entries (C = 3), on the encoder's
     # entries over zeros at max_match 258 (runs of one index of at least
@@ -1796,7 +1884,7 @@ def main() -> None:
     # ---- 6. dynamic trees -----------------------------------------------
     (dstream, dindex, dback, enc_s, dec_s), counts = counted(
         "dynamic", lambda: round_trip(dcfg),
-        ("match_bitplane_batch", "mono_scatter_add", "mono_compact",
+        ("match_bitplane_batch", "dyn_trees_batch", "mono_scatter_add", "mono_compact",
          "tokenize_dyn_batch", "expand_fused3"))
     require(zlib.decompress(dstream) == data, "zlib rejects the dynamic stream")
     require(dback == data, "the dynamic stream did not round-trip")
@@ -2197,8 +2285,9 @@ def main() -> None:
         f"resolve_roots with and without a 32 KiB window); launches {counts} "
         f"on {name}, {smi}")
     every = {k for c in new_runs.values() for k, v in c.items() if v}
-    # every kernel but the full window's exact far matcher (phase 10)
-    kernels9 = {r["name"] for r in results} - {"far_match_batch"}
+    # every kernel but the encode's of the full window and dynamic trees
+    # (phases 6 and 10); the new runs compress with static trees
+    kernels9 = {r["name"] for r in results} - {"far_match_batch", "dyn_trees_batch"}
     require(every == kernels9, f"kernels that launched or not on the new "
             f"runs: {sorted(every ^ kernels9)}")
 
@@ -2261,16 +2350,16 @@ def main() -> None:
     t10 = time.perf_counter()
     fw_runs = (
         ("full_window", FULL_WINDOW, PIN_FULL_WINDOW,
-         ("far_match_batch", "mono_scatter_add", "mono_compact", "tokenize_dyn_batch",
-          "expand_fused3")),
+         ("far_match_batch", "dyn_trees_batch", "mono_scatter_add", "mono_compact",
+          "tokenize_dyn_batch", "expand_fused3")),
         ("full_fast", DeflateConfig(window=32768, max_match=258, lazy=True,
                                     chunk_size=1 << 16, far_matcher="fast"),
          PIN_FULL_FAST, ("mono_scatter_add", "tokenize_static_batch", "expand_fused3")),
         ("best_ratio", DeflateConfig(window=32768, max_match=258, lazy=True,
                                      dynamic_encode=True, chunk_size=1 << 18),
          PIN_BEST_RATIO,
-         ("far_match_batch", "mono_scatter_add", "mono_compact", "tokenize_dyn_batch",
-          "expand_fused2")),
+         ("far_match_batch", "dyn_trees_batch", "mono_scatter_add", "mono_compact",
+          "tokenize_dyn_batch", "expand_fused2")),
     )
     for path_name, fcfg, pin, must in fw_runs:
         (fstream, findex, fback, enc_s, dec_s), counts, held = checked(

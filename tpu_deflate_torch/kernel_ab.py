@@ -20,10 +20,15 @@ encode, 128 lanes of 64 KiB:
     (C = 3), the same with the batch's last lane cut to N / 8 and with
     every lane cut so, and on the one call of a ``one_block`` compress of
     1.125 MiB (one lane of 2 MiB), static and dynamic;
-  * ``encode_blocks_batch``, static and dynamic: CUDA events around 10
-    back-to-back calls, and the profiler's device time;
+  * ``_dynamic_trees`` on the arguments it gets in ``FULL_WINDOW``'s
+    encode of the 128 lanes (device ms: the ``dyntrees`` kernel where the
+    root has it, else the torch glue), and the plain version
+    ``_dynamic_trees_plain`` on the same, where the root has it;
+  * ``encode_blocks_batch``, static, dynamic and ``FULL_WINDOW``: CUDA
+    events around 10 back-to-back calls, and the profiler's device time;
   * the API round trip ``compress_indexed`` + ``decompress_indexed``,
-    static and dynamic: host clock, mean of 3 after one warm-up.
+    static, dynamic and ``FULL_WINDOW``: host clock, mean of 3 after one
+    warm-up.
 
 decode, device ms unless said:
   * ``expand_fused2`` on the second 512 KiB segment of ``decompress`` of
@@ -46,7 +51,7 @@ decode, device ms unless said:
     warm-up.
 
 Each run prints one JSON line ``{"root": ..., "ms": {...}}``; then a
-table of every measurement by run.  Outputs are not checked here beyond
+table of every measurement by run ("-" where a root has no such path).  Outputs are not checked here beyond
 the decodes' bytes: ``chip_smoke.py`` holds each kernel against its plain
 version.
 """
@@ -137,7 +142,13 @@ def spy(module, name: str, calls: list):
 def encode_ms(data: bytes, dev) -> dict:
     import torch
 
-    from tpu_deflate_torch import DeflateConfig, compress, compress_indexed, decompress_indexed
+    from tpu_deflate_torch import (
+        FULL_WINDOW,
+        DeflateConfig,
+        compress,
+        compress_indexed,
+        decompress_indexed,
+    )
     from tpu_deflate_torch.ops import encode as E
 
     chunk = 1 << 16
@@ -181,7 +192,16 @@ def encode_ms(data: bytes, dev) -> dict:
         args = calls[0]
         ms[f"pack one_block C={args[1].shape[1]}"] = device_ms(lambda: pack(*args))
 
-    for what, cfg in (("static", scfg), ("dynamic", dcfg)):
+    calls = []
+    trees = spy(E, "_dynamic_trees", calls)
+    E.encode_blocks_batch(chunks, lens, finals, FULL_WINDOW)
+    E._dynamic_trees = trees
+    ms["dyntrees full window device"] = device_ms(lambda: trees(*calls[0]))
+    if hasattr(E, "_dynamic_trees_plain"):
+        ms["dyntrees plain full window device"] = device_ms(
+            lambda: E._dynamic_trees_plain(*calls[0]), reps=3)
+
+    for what, cfg in (("static", scfg), ("dynamic", dcfg), ("full window", FULL_WINDOW)):
         enc = lambda: E.encode_blocks_batch(chunks, lens, finals, cfg)  # noqa: E731
         ms[f"encode {what} events"] = event_ms(enc)
         ms[f"encode {what} device"] = device_ms(enc, reps=5)
@@ -328,8 +348,10 @@ def main(argv) -> int:
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
     print("measurement | " + " | ".join(r["root"] for r in runs))
-    for key in runs[0]["ms"]:
-        print(f"{key} | " + " | ".join(f"{r['ms'][key]:.4f}" for r in runs))
+    keys = dict.fromkeys(k for r in runs for k in r["ms"])
+    for key in keys:
+        print(f"{key} | " + " | ".join(
+            f"{r['ms'][key]:.4f}" if key in r["ms"] else "-" for r in runs))
     print(smi, flush=True)
     return 0
 

@@ -50,6 +50,7 @@ SIGNATURES = {
     "farmatch_keys_launch": [_P, _P, _P, _I, _I, _P],
     "farmatch_prev_launch": [_P, _P, _P, _I, _I, _P],
     "farmatch_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "dyntrees_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

@@ -447,3 +447,106 @@ def resolve_edge_forests(tile: int, seed: int) -> dict:
     return {name: (p.astype(np.int32),
                    rng.integers(0, 256, p.shape).astype(np.int32))
             for name, p in out.items()}
+
+
+# --- token starts for the dynamic trees (csrc/dyntrees.cu) ----------------
+
+
+def tree_lane(tokens, n_extra: int = 0, seed: int = 0):
+    """(start bool[N], litlen_sym, dsym int64[N]) of a lane holding tokens
+    (literal/length symbol, distance symbol) at every other position; the
+    positions between them and n_extra more at the end start no token and
+    hold seeded garbage symbols, which the count must skip."""
+    rng = np.random.default_rng(seed)
+    tokens = np.asarray(tokens, np.int64).reshape(-1, 2)
+    N = 2 * len(tokens) + n_extra
+    start = np.zeros(N, bool)
+    lsym = rng.integers(0, 286, N)
+    dsym = rng.integers(0, 30, N)
+    start[: 2 * len(tokens) : 2] = True
+    lsym[: 2 * len(tokens) : 2] = tokens[:, 0]
+    dsym[: 2 * len(tokens) : 2] = tokens[:, 1]
+    return start, lsym, dsym
+
+
+def tree_tokens(lf, df, seed: int = 0):
+    """Tokens int64[T, 2] with literal/length counts lf[:286] and the
+    distance counts df spread over the length codes (>= 257), in seeded
+    order."""
+    rng = np.random.default_rng(seed)
+    lits = np.repeat(np.arange(286), lf)
+    matches = lits >= 257
+    if matches.sum() != np.sum(df):
+        raise ValueError("tree_tokens: the distance counts are not the matches'")
+    d = np.zeros(len(lits), np.int64)
+    d[matches] = rng.permutation(np.repeat(np.arange(30), df))
+    order = rng.permutation(len(lits))
+    return np.stack([lits[order], d[order]], 1)
+
+
+def over_15_counts():
+    """(lf, df): every literal/length symbol used, 2^18 tokens in all with
+    the end-of-block: 12 distinct powers of two, 200 counts of 16 (length
+    14), 24 of 2 and 50 of 1 (a design solved for).  The ceil rule gives
+    each count its exact share but clips the 74 rare ones from 17 and 18
+    bits to 15, which oversubscribes the code by 63 units of 2^-15; the
+    repair frees one a round from the symbols of length 14 and stops at 48
+    rounds, so the lengths stay oversubscribed and the lane keeps static
+    trees.  (Fibonacci counts would not do: their shares are no powers of
+    two, and the ceil rule leaves each well under its share.)"""
+    syms = [s for s in range(286) if s != 256]
+    big = [1 << k for k in range(17, -1, -1) if 258846 >> k & 1]
+    lf = np.zeros(286, np.int64)
+    lf[syms] = big + [16] * 200 + [2] * 24 + [1] * 49
+    df = np.full(30, lf[257:].sum() // 30)
+    df[0] += lf[257:].sum() - df.sum()
+    return lf, df
+
+
+def cl_clipped_counts():
+    """(lf, df): counts 2^(15 - L) of the lengths L, 8 and 9 alternating over
+    the 256 literals, 3 .. 15 over the length codes 257 .. 269 and 15 for
+    the end-of-block, a complete code of 2^15 tokens, which the rule keeps
+    as it is; every match at distance code 29.  The 316 lengths run-length
+    encode to 273 ops, 128 each of 8 and 9, so the code-length tree's ceil
+    rule asks 9 bits of its rarest symbols and clips them to 7."""
+    L = np.zeros(286, np.int64)
+    L[:256] = 8 + np.arange(256) % 2
+    L[257:270] = np.arange(3, 16)
+    lf = np.where(L > 0, 1 << (15 - L), 0)
+    df = np.zeros(30, np.int64)
+    df[29] = lf[257:].sum()
+    return lf, df
+
+
+# 61 literals from a seeded search: their dynamic header and tokens take
+# exactly the static trees' bits, so the lane keeps static trees
+TIE_LITERALS = [4, 67, 171, 171, 4, 202, 253, 143, 190, 46, 200, 143, 223, 107, 200,
+                95, 223, 239, 202, 4, 188, 2, 89, 4, 89, 46, 4, 200, 133, 171, 200, 95,
+                108, 189, 200, 133, 200, 189, 200, 4, 200, 253, 200, 223, 253, 200, 4,
+                202, 202, 171, 253, 4, 89, 133, 171, 39, 107, 202, 202, 189, 95]
+
+TREE_EDGE_LANES = ("empty", "one_literal", "literals_only", "over_15_bits",
+                   "cl_clipped", "static_tie")
+
+
+def tree_edge_lane(name: str):
+    """The hand-built lane ``name`` of TREE_EDGE_LANES: no token; one
+    literal; 3000 seeded letters (no match: distance code 0 forced); the
+    repair's 48 rounds run out (``over_15_counts``); the code-length tree
+    clipped (``cl_clipped_counts``); dynamic and static trees alike in
+    bits (``TIE_LITERALS``)."""
+    if name == "empty":
+        return tree_lane([], n_extra=64)
+    if name == "one_literal":
+        return tree_lane([(65, 0)], n_extra=5)
+    if name == "literals_only":
+        letters = np.random.default_rng(1951).integers(97, 123, 3000)
+        return tree_lane([(int(b), 0) for b in letters], seed=1)
+    if name == "over_15_bits":
+        return tree_lane(tree_tokens(*over_15_counts()), seed=2)
+    if name == "cl_clipped":
+        return tree_lane(tree_tokens(*cl_clipped_counts()), seed=3)
+    if name == "static_tie":
+        return tree_lane([(s, 0) for s in TIE_LITERALS], seed=4)
+    raise ValueError(f"tree_edge_lane: no lane {name!r}")

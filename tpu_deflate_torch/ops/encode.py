@@ -20,7 +20,7 @@ Four stages per lane, all lanes at once:
        of 16-bit channels (the ``monotone`` kernel).  With dynamic_encode
        each lane also builds length-limited trees from its symbol counts
        and keeps them where header and tokens take fewer bits than the
-       static trees.
+       static trees (the ``dyntrees`` kernel on the card).
 
 Each lane is one block; a non-final lane ends byte-aligned with an
 empty stored block, so lanes concatenate bytewise into one stream, and a
@@ -35,12 +35,13 @@ from __future__ import annotations
 import torch
 
 from tpu_deflate_torch.config import DeflateConfig
+from tpu_deflate_torch.kernels.dyntrees import dyn_trees_batch
 from tpu_deflate_torch.kernels.farmatch import far_match_batch
 from tpu_deflate_torch.kernels.match2 import MAX_WINDOW, match_bitplane_batch
 from tpu_deflate_torch.kernels.monotone import mono_scatter_add
 from tpu_deflate_torch.ops.header import chase_reach
 from tpu_deflate_torch.spec import tables as T
-from tpu_deflate_torch.utils.profiling import span
+from tpu_deflate_torch.utils.profiling import count, span
 
 _STORED_MAX = 65535
 
@@ -490,6 +491,18 @@ def _rle_code_lengths(L: torch.Tensor, ops_cap: int = 320):
 
 
 def _dynamic_trees(start, is_match, litlen_sym, dsym, lebits, debits):
+    """Per-lane dynamic trees and header, and the static-or-dynamic choice
+    by exact bit count: the ``dyntrees`` kernel off the CPU, which reads
+    the token starts and their symbols alone (a start is a match where its
+    symbol is a length code, and the extra bits are alike under either
+    tree), the plain version on it."""
+    if start.device.type != "cpu":
+        count("dyntrees")
+        return dyn_trees_batch(start, litlen_sym, dsym)
+    return _dynamic_trees_plain(start, is_match, litlen_sym, dsym, lebits, debits)
+
+
+def _dynamic_trees_plain(start, is_match, litlen_sym, dsym, lebits, debits):
     """Per-lane dynamic trees and header, and the static-or-dynamic choice
     by exact bit count.  Returns (use_dyn bool[B], lit_code, lit_len
     int64[B, 288], dist_code, dist_len int64[B, 32], hdr_vals, hdr_nbs
